@@ -1,0 +1,75 @@
+"""The hand-written CUDA kernels of acousticswarms_speech_tpu_torch against
+their plain PyTorch versions, on the card.
+
+Every test here carries the `gpu` marker and skips without a CUDA device
+(decided inside a fixture, so every worker collects the same tests).  This
+file imports neither JAX nor the JAX package, so it runs on a machine that
+has neither:
+
+    python3 -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
+"""
+import os
+import sys
+
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from acousticswarms_speech_tpu_torch.ops import roll_kernel  # noqa: E402
+from acousticswarms_speech_tpu_torch.ops.shift import (  # noqa: E402
+    roll_channels_batch,
+    roll_channels_batch_plain,
+    roll_zero_fill_batch,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU build)")
+    return torch.device("cuda")
+
+
+def _shifts(B, T, gen):
+    s = torch.randint(-T + 1, T, (B, 7), generator=gen, dtype=torch.int32)
+    for k, v in enumerate([-(T - 1), -5, 0, 3, T - 1][:B]):
+        s[k] = v
+    return s
+
+
+@pytest.mark.parametrize("B,T", [(1, 1), (3, 5), (32, 72000), (37, 72000),
+                                 (5, 144000), (512, 72000), (4, 1023)])
+def test_roll_kernel_matches_plain(cuda, B, T):
+    """Exact equality: the kernel copies samples.  T = 1023 and 5 take the
+    scalar-store path, the others the 16-byte one."""
+    gen = torch.Generator().manual_seed(B * 100003 + T)
+    mix = torch.randn(7, T, generator=gen).to(cuda)
+    shifts = _shifts(B, T, gen).to(cuda)
+    before = roll_kernel.roll_channels_batch_cuda.launches
+    got = roll_channels_batch(mix, shifts)
+    torch.cuda.synchronize()
+    assert roll_kernel.roll_channels_batch_cuda.launches == before + 1
+    assert torch.equal(got, roll_channels_batch_plain(mix, shifts))
+
+
+def test_roll_zero_fill_on_card(cuda):
+    gen = torch.Generator().manual_seed(1)
+    mix = torch.randn(7, 4096, generator=gen).to(cuda)
+    shifts = _shifts(6, 4096, gen).to(cuda)
+    got = roll_zero_fill_batch(mix, shifts).cpu()
+    want = roll_zero_fill_batch(mix.cpu(), shifts.cpu())
+    assert torch.equal(got, want)
+
+
+def test_roll_kernel_rejects_bad_inputs(cuda):
+    mix = torch.zeros(7, 64, device=cuda)
+    shifts = torch.zeros(2, 7, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        roll_kernel.roll_channels_batch_cuda(mix.double(), shifts)
+    with pytest.raises(ValueError):
+        roll_kernel.roll_channels_batch_cuda(mix.t(), shifts)
+    with pytest.raises(ValueError):
+        roll_kernel.roll_channels_batch_cuda(mix, shifts[:, :5].contiguous())

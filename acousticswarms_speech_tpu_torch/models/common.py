@@ -6,6 +6,7 @@ normalization reference, and std uses Bessel's correction.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 
 def normalize_input(data: torch.Tensor):
@@ -19,3 +20,12 @@ def normalize_input(data: torch.Tensor):
 
 def unnormalize_input(data: torch.Tensor, means, stds) -> torch.Tensor:
     return data * stds + means
+
+
+def run_block(remat: bool, block: torch.nn.Module, *args, **kwargs):
+    """`block(*args, **kwargs)`.  With `remat`, while training with
+    gradients on, the block's activations are recomputed in the backward
+    pass instead of kept (the JAX package's `nn.remat`)."""
+    if remat and block.training and torch.is_grad_enabled():
+        return checkpoint(block, *args, use_reentrant=False, **kwargs)
+    return block(*args, **kwargs)

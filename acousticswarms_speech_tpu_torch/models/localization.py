@@ -13,6 +13,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .common import run_block
 from .modules import (
     DecoderBlock,
     EncoderBlock,
@@ -29,9 +30,13 @@ class SpotNet(nn.Module):
                  encoder_channels: int = 2048, encoder_kernel_size: int = 33,
                  encoder_stride: int = 16, residual_layers: int = 3,
                  residual_dilation_factor: int = 7, num_head: int = 8,
-                 ffw_dim: int = 1024, num_transformer_layers: int = 2):
+                 ffw_dim: int = 1024, num_transformer_layers: int = 2,
+                 remat: bool = False):
+        """`remat`: recompute the U-Net blocks' activations in the backward
+        pass (training memory), as the JAX package's `remat` does."""
         super().__init__()
         self.n_mics = n_mics
+        self.remat = remat
         self.stride_list = tuple(stride_list)
         self.stride_product = math.prod(self.stride_list)
         depth = len(self.stride_list)
@@ -75,12 +80,13 @@ class SpotNet(nn.Module):
         x = self.preproc(mix)
         skips = [x]
         for i in range(self.depth):
-            x = getattr(self, f"encoder_{i}")(x, window_embedding)
+            x = run_block(self.remat, getattr(self, f"encoder_{i}"), x,
+                          window_embedding)
             skips.append(x)
         x = self.bottleneck(x.transpose(1, 2)).transpose(1, 2)
         for i in range(self.depth):
-            x = getattr(self, f"decoder_{i}")(x, skips[-(i + 1)],
-                                              window_embedding)
+            x = run_block(self.remat, getattr(self, f"decoder_{i}"), x,
+                          skips[-(i + 1)], window_embedding)
 
         y = F.relu(self.reference_bypass(ref))
         mask = F.relu(self.mask_encoder(x))

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from .common import run_block
 from .conformer import ConformerLayer
 from .modules import (
     DecoderBlock,
@@ -34,9 +35,13 @@ class SepNet(nn.Module):
                  encoder_stride: int = 16, residual_layers: int = 3,
                  residual_dilation_factor: int = 2, num_head: int = 8,
                  ffw_dim: int = 1024, bottleneck_layers: int = 3,
-                 bottleneck_ksize: int = 31):
+                 bottleneck_ksize: int = 31, remat: bool = False):
+        """`remat`: recompute the activations of the U-Net blocks and the
+        bottleneck layers in the backward pass (training memory), as the
+        JAX package's `remat` does."""
         super().__init__()
         self.n_mics = n_mics
+        self.remat = remat
         self.max_speakers = max_speakers
         self.stride_list = tuple(stride_list)
         self.stride_product = math.prod(self.stride_list)
@@ -88,23 +93,24 @@ class SepNet(nn.Module):
         x = self.preproc(mix.reshape(B * S, self.n_mics, T))
         skips = [x]
         for i in range(self.depth):
-            x = getattr(self, f"encoder_{i}")(x)
+            x = run_block(self.remat, getattr(self, f"encoder_{i}"), x)
             skips.append(x)
 
         C, Tb = x.shape[1], x.shape[2]
         pad_mask = ~spk_valid.repeat_interleave(Tb, dim=0)  # (B*Tb, S)
         for l in range(self.bottleneck_layers):
             # intra: a Conformer over time for each speaker
-            x = getattr(self, f"bottleneck_{l}_intra")(
-                x.transpose(1, 2)).transpose(1, 2)
+            x = run_block(self.remat, getattr(self, f"bottleneck_{l}_intra"),
+                          x.transpose(1, 2)).transpose(1, 2)
             # inter: attention across the speaker axis at each time step
             y = x.reshape(B, S, C, Tb).permute(0, 3, 1, 2).reshape(B * Tb, S, C)
-            y = getattr(self, f"bottleneck_{l}_inter")(
-                y, src_key_padding_mask=pad_mask)
+            y = run_block(self.remat, getattr(self, f"bottleneck_{l}_inter"),
+                          y, src_key_padding_mask=pad_mask)
             x = y.reshape(B, Tb, S, C).permute(0, 2, 3, 1).reshape(B * S, C, Tb)
 
         for i in range(self.depth):
-            x = getattr(self, f"decoder_{i}")(x, skips[-(i + 1)])
+            x = run_block(self.remat, getattr(self, f"decoder_{i}"), x,
+                          skips[-(i + 1)])
 
         y = F.relu(self.reference_bypass(ref))  # (B, F, T/16)
         mask = F.relu(self.mask_encoder(x))     # (B*S, F, T/16)

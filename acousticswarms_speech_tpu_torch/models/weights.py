@@ -46,9 +46,10 @@ def from_jax_params(tree: Mapping, dtype=torch.float32) -> dict[str, torch.Tenso
 
 
 def create_model(model_name: str, model_params: Mapping) -> torch.nn.Module:
+    """The network `model_name` names, built from a description's
+    `model_params` (`remat` recomputes activations while training)."""
     params = dict(model_params)
-    for knob in ("device", "remat"):  # JAX-only training knobs
-        params.pop(knob, None)
+    params.pop("device", None)  # a JAX-only knob
     return MODEL_REGISTRY[model_name](**params)
 
 

@@ -26,6 +26,7 @@ NVCC_TIMEOUT_S = 300
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "kernel_build")  # gitignored
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
 
 
@@ -84,8 +85,26 @@ def _load():
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            lib.empty_launch.argtypes = [ctypes.c_void_p]
+            lib.empty_launch.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def _launch(device: torch.device, launch, *args) -> int:
+    """`launch(*args, stream)` with the raw handle of `device`'s current
+    stream, on `device`; returns the launcher's error code.
+
+    torch.cuda.current_stream() builds a Stream object per call, which
+    costs the host more than a small launch costs the card, so the raw
+    handle is read instead.  A kernel goes to the calling thread's current
+    device, so a device context is entered only for another device."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return launch(*args, stream)
+    with torch.cuda.device(index):
+        return launch(*args, stream)
 
 
 def roll_channels_batch_cuda(mix: torch.Tensor,
@@ -110,14 +129,22 @@ def roll_channels_batch_cuda(mix: torch.Tensor,
     if B == 0 or T == 0:
         return out
     lib = _load()
-    with torch.cuda.device(mix.device):
-        stream = torch.cuda.current_stream(mix.device).cuda_stream
-        err = lib.roll_channels_batch_launch(
-            mix.data_ptr(), shifts.data_ptr(), out.data_ptr(), B, M, T, stream)
+    err = _launch(mix.device, lib.roll_channels_batch_launch, mix.data_ptr(),
+                  shifts.data_ptr(), out.data_ptr(), B, M, T)
     if err != 0:
         raise RuntimeError(f"roll kernel launch failed: cudaError {err}")
-    roll_channels_batch_cuda.launches += 1
+    with _count_lock:  # pipeline lanes launch from several threads
+        roll_channels_batch_cuda.launches += 1
     return out
 
 
 roll_channels_batch_cuda.launches = 0  # kernel launches since the last reset
+
+
+def empty_launch_cuda(device) -> None:
+    """Launch the library's empty kernel on `device`'s current stream,
+    through the same path as the roll kernel: a probe of the fixed cost of
+    one launch, not part of any pipeline path."""
+    err = _launch(torch.device(device), _load().empty_launch)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")

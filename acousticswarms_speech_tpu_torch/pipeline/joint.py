@@ -18,7 +18,8 @@ import torch
 from ..constants import FS
 from ..device import resolve_device
 from ..models.weights import load_release
-from ..search.spotform import SeparationInference, SpotformExecutor, to_numpy
+from ..search.spotform import (SeparationInference, SpotformExecutor,
+                               SweepLane, to_numpy)
 from .mic_array import MicArray
 
 
@@ -35,8 +36,10 @@ class JointPipeline:
         get one extra full-length strict sweep for NMS and output audio.
         Default 1.5 s, as in the JAX package; 0 sweeps the full mixture."""
         self.device = resolve_device(device)
-        self.spot_model = SpotformExecutor(spot_model, use_bf16=use_bf16,
-                                           device=self.device)
+        # the pipeline's own view of the executor, which counts its spot
+        # calls (lanes of pipeline/throughput.py share the executor)
+        self.spot_model = SweepLane(SpotformExecutor(
+            spot_model, use_bf16=use_bf16, device=self.device))
         self.sep_model = SeparationInference(sep_model, use_bf16=use_bf16,
                                              device=self.device)
         env_crop = os.environ.get("SPOT_CROP_SECONDS")
@@ -54,6 +57,19 @@ class JointPipeline:
         (`<dir>/release/params_f16.msgpack`), in float32."""
         device = resolve_device(device)
         return cls(load_release(spot_dir, device), load_release(sep_dir, device),
+                   device=device, **kwargs)
+
+    @classmethod
+    def from_experiments(cls, spot_exp_dir: str, sep_exp_dir: str,
+                         device=None, **kwargs) -> "JointPipeline":
+        """Both networks from experiment directories in 'best' mode: the
+        best checkpoint by the sidecar's validation losses, else the
+        release weights (training/experiment.py)."""
+        from ..training.experiment import load_model_from_exp
+
+        device = resolve_device(device)
+        return cls(load_model_from_exp(spot_exp_dir, mode="best", device=device),
+                   load_model_from_exp(sep_exp_dir, mode="best", device=device),
                    device=device, **kwargs)
 
     def setup(self, mic_positions: np.ndarray, speaker_range,

@@ -2,6 +2,7 @@ from .spotform import (
     DelayAndSumExecutor,
     SeparationInference,
     SpotformExecutor,
+    SweepLane,
     SweepResult,
 )
 from .srp_pruning import SrpEngine

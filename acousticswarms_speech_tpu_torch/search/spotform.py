@@ -108,12 +108,12 @@ class SweepResult:
 
 
 class _BatchedSweep:
-    """The sweep shared by the executors."""
+    """The sweep shared by the executors.  Callers count the candidates
+    they sweep through `SweepLane`."""
 
     def __init__(self, device=None, chunk: int = MAP_CHUNK):
         self.device = resolve_device(device)
         self.chunk = chunk
-        self.calls = 0
 
     def _chunk_fn(self, rolled: torch.Tensor, onehot: torch.Tensor):
         """(C, M, T) rolled candidates -> (out (C, T), total (C,), win (C,))."""
@@ -133,8 +133,27 @@ class _BatchedSweep:
                  for i in range(0, n, self.chunk)]
         out, totals, wins = (torch.cat([p[k] for p in parts]) for k in range(3))
         sim = sisdr_matrix(out) if with_similarity else None
-        self.calls += n
         return SweepResult(out, n, totals, wins, sim)
+
+
+class SweepLane:
+    """One pipeline lane's handle on a shared sweep executor: the same
+    network, device and sweeps, with the lane's own count of swept
+    candidates in `calls`.  Lanes run in threads, so a count kept on the
+    shared executor would mix theirs.  Other attributes are the
+    executor's."""
+
+    def __init__(self, executor: _BatchedSweep):
+        self.executor = executor
+        self.calls = 0
+
+    def sweep(self, *args, **kwargs) -> SweepResult:
+        result = self.executor.sweep(*args, **kwargs)
+        self.calls += result.n
+        return result
+
+    def __getattr__(self, name):
+        return getattr(self.executor, name)
 
 
 class SpotformExecutor(_BatchedSweep):

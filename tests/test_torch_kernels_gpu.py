@@ -73,3 +73,34 @@ def test_roll_kernel_rejects_bad_inputs(cuda):
         roll_kernel.roll_channels_batch_cuda(mix.t(), shifts)
     with pytest.raises(ValueError):
         roll_kernel.roll_channels_batch_cuda(mix, shifts[:, :5].contiguous())
+
+
+def test_roll_kernel_counts_launches_and_runs_in_threads(cuda):
+    """Two threads launch the kernel at once: every result equals the
+    plain version and every launch is counted once."""
+    import threading
+
+    gen = torch.Generator().manual_seed(5)
+    mix = torch.randn(7, 9000, generator=gen).to(cuda)
+    shifts = [_shifts(11, 9000, gen).to(cuda) for _ in range(2)]
+    before = roll_kernel.roll_channels_batch_cuda.launches
+    bad = []
+
+    def run(k):
+        for _ in range(50):
+            got = roll_kernel.roll_channels_batch_cuda(mix, shifts[k])
+            if not torch.equal(got, roll_channels_batch_plain(mix, shifts[k])):
+                bad.append(k)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not bad
+    assert roll_kernel.roll_channels_batch_cuda.launches - before == 100
+
+
+def test_empty_probe_launches(cuda):
+    roll_kernel.empty_launch_cuda(cuda)
+    torch.cuda.synchronize()

@@ -39,6 +39,23 @@ SEP_SMALL = dict(max_speakers=5, channels=8, encoder_channels=32,
                  bottleneck_layers=1, bottleneck_ksize=7)
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread(request):
+    """Narrow networks run torch on one thread (full-width, slow cases keep
+    all threads).  Under pytest-xdist the cores are shared by the workers,
+    and torch's idle OpenMP threads spin on them, slowing every other
+    worker; the narrow networks gain little from more threads."""
+    if request.node.get_closest_marker("slow"):
+        yield
+        return
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _seeded_weights(model, seed):
     """Weights for both packages from a numpy seed: a flax variables tree
     and the same values loaded into the port's `model`."""

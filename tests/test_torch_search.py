@@ -112,7 +112,8 @@ def test_spotnet_sweep_matches_jax():
     # strict=1, the fine sweep's window (SpotNet itself is checked on both
     # window one-hots in test_torch_models.py)
     want = jax_exec.sweep(seg, cands, strict=1, with_similarity=True)
-    got = port_exec.sweep(seg, cands, strict=1, with_similarity=True)
+    lane = spotform.SweepLane(port_exec)
+    got = lane.sweep(seg, cands, strict=1, with_similarity=True)
     # float32 network outputs agree to ~1e-6 relative; powers to 1e-4
     np.testing.assert_allclose(got.powers, want.powers, rtol=1e-4)
     np.testing.assert_allclose(got.powers_win, want.powers_win, rtol=1e-4)
@@ -125,4 +126,4 @@ def test_spotnet_sweep_matches_jax():
         peak = np.abs(rows_w[i]).max()
         np.testing.assert_allclose(rows_g[i], rows_w[i], atol=1e-4 * peak)
         np.testing.assert_allclose(q_g[i], q_w[i], atol=1e-4 * peak)
-    assert port_exec.calls == 5
+    assert lane.calls == 5

@@ -55,8 +55,6 @@ __global__ void roll_channels_kernel(const float* __restrict__ mix,
   }
 }
 
-__global__ void empty_kernel() {}
-
 }  // namespace
 
 // mix: (M, T) float32, shifts: (B, M) int32, out: (B, M, T) float32, all
@@ -74,10 +72,3 @@ extern "C" int roll_channels_batch_launch(const void* mix, const void* shifts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// An empty kernel launched like the roll kernel (one C call through ctypes,
-// on `stream`): a probe of the fixed cost of a launch through this path, to
-// compare with the roll kernel's small launches.
-extern "C" int empty_launch(void* stream) {
-  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
-  return static_cast<int>(cudaGetLastError());
-}

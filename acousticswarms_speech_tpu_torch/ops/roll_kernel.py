@@ -85,8 +85,6 @@ def _load():
                            ctypes.c_int, ctypes.c_int, ctypes.c_int,
                            ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            lib.empty_launch.argtypes = [ctypes.c_void_p]
-            lib.empty_launch.restype = ctypes.c_int
             _lib = lib
     return _lib
 
@@ -140,11 +138,3 @@ def roll_channels_batch_cuda(mix: torch.Tensor,
 
 roll_channels_batch_cuda.launches = 0  # kernel launches since the last reset
 
-
-def empty_launch_cuda(device) -> None:
-    """Launch the library's empty kernel on `device`'s current stream,
-    through the same path as the roll kernel: a probe of the fixed cost of
-    one launch, not part of any pipeline path."""
-    err = _launch(torch.device(device), _load().empty_launch)
-    if err != 0:
-        raise RuntimeError(f"empty kernel launch failed: cudaError {err}")

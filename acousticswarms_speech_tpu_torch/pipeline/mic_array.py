@@ -27,8 +27,11 @@ from ..constants import (
     SPOT_POWER_THRESHOLD2,
     USE_RELATIVE_SPOT_POWER,
 )
+from ..device import resolve_device
 from ..dsp.geometry import build_geometry
+from ..dsp.music import music_map_window
 from ..dsp.patch import Patch
+from ..dsp.tops import tops_map_window
 from ..search import power_trace
 from ..search.clustering import (
     NMS_TDOA_ELECT,
@@ -42,6 +45,9 @@ from ..search.spotform import to_numpy
 from ..search.srp_pruning import SrpEngine
 from ..search.subdivide import binary_search_baseline, search_area
 
+# The classical baselines' maps, which replace the SRP map before pruning.
+BASELINE_MAPS = {"MUSIC": music_map_window, "TOPS": tops_map_window}
+
 
 class MicArray:
     """One microphone configuration's search engine."""
@@ -49,7 +55,8 @@ class MicArray:
     def __init__(self, mic_positions: np.ndarray, spk_range=None,
                  grid_size: float = 0.05, prune_method: str = "SRP",
                  min_trigger_power: float = 0.5, cache_dir: str | None = None,
-                 threshold=(0.15, 0.015, 0.05), device="cuda"):
+                 threshold=(0.15, 0.015, 0.05), device=None):
+        self.device = resolve_device(device)
         self.prune_method = prune_method
         self.min_trigger_power = min_trigger_power
         self.range_spk = spk_range
@@ -67,7 +74,7 @@ class MicArray:
                                    grid_size=grid_size, cache_dir=cache_dir)
         self.srp = SrpEngine(self.geom, threshold=threshold, width=INIT_WIDTH,
                              freq_bins=FREQ_BINS, fs=FS, n_fft=N_FFT,
-                             device=device)
+                             device=self.device)
 
         self.original_times = 0
         self.spotforming_times = 0
@@ -79,10 +86,16 @@ class MicArray:
         (reference: Mic_Array.py:152-194)."""
         self.spotforming_times = 0
         self.original_times = 0
-        # The MUSIC and TOPS baselines of the JAX package are not ported yet.
-        if self.prune_method != "SRP":
-            raise ValueError(f"prune method {self.prune_method} is not ported")
-        self.srp.compute_map(mix_data)  # a device tensor is consumed as-is
+        if self.prune_method == "SRP":
+            self.srp.compute_map(mix_data)  # a device tensor is consumed as-is
+        elif self.prune_method in BASELINE_MAPS:
+            self.srp.srp_map = BASELINE_MAPS[self.prune_method](
+                mix_data, self.geom, FREQ_BINS, N_FFT, device=self.device
+            ).astype(np.float32)
+            self.srp.max_power = float(self.srp.srp_map.max())
+            self.srp.min_power = float(self.srp.srp_map.min())
+        else:
+            raise ValueError(f"unknown prune method {self.prune_method}")
 
         patch_list = self.srp.local_source_adaptive()
         simple_pos = np.zeros((3, 3))

@@ -25,14 +25,16 @@ from .joint import JointPipeline
 
 
 def make_lane(pipe: JointPipeline) -> JointPipeline:
-    """A pipeline view sharing `pipe`'s networks, executors and device, with
-    its own per-mixture stage state and spot-call count."""
-    lane = JointPipeline.__new__(JointPipeline)
-    lane.device = pipe.device
+    """A pipeline view sharing `pipe`'s networks, executors, device and
+    every other attribute, with its own per-mixture stage state (`times`,
+    `previous_config`, `mic_processor`) and its own spot-call count.
+
+    The lane starts from a copy of `pipe.__dict__`, so an attribute added
+    to the pipeline (in `__init__` or later) reaches every lane."""
+    lane = type(pipe).__new__(type(pipe))
+    lane.__dict__.update(pipe.__dict__)
     lane.spot_model = SweepLane(getattr(pipe.spot_model, "executor",
                                         pipe.spot_model))
-    lane.sep_model = pipe.sep_model
-    lane.sweep_crop_seconds = pipe.sweep_crop_seconds
     lane.times = [0.0] * 5
     lane.previous_config = None
     lane.mic_processor = None

@@ -31,6 +31,7 @@ from ..constants import (
     NEG_SAMPLE_INITIAL_CANDIDATES,
     ROOM_DIM,
 )
+from ..runtime import native
 from ..utils import (
     get_shift_vector,
     powerlaw_psd_gaussian,
@@ -70,13 +71,15 @@ def _cached_voice(path: str, sr) -> np.ndarray:
 
 
 def _load_mixture(curr_dir, mics) -> np.ndarray:
-    """All mixture channels of a sample, (M, T), through the WAV cache."""
+    """All mixture channels of a sample, (M, T), through the WAV cache, read
+    by the native parallel WAV loader (runtime/native.py)."""
     key = (str(curr_dir), tuple(mics))
     cached = _WAV_CACHE.get(key)
     if cached is not None:
         return cached
     paths = [str(os.path.join(curr_dir, m)) + "_mixed.wav" for m in mics]
-    return _cache_put(key, np.concatenate([read_audio_file(p) for p in paths]))
+    first = native.load_wav(paths[0])
+    return _cache_put(key, native.load_wavs(paths, len(first)))
 
 
 class BaseDataset:

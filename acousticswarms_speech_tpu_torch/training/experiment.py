@@ -6,8 +6,8 @@ with 'best' / 'last' / 'new' modes), in the reference's layout:
 `<exp>/description.json` plus `<exp>/checkpoints/` holding the per-epoch
 param files and the state sidecar.  With no checkpoint, the git-tracked
 float16 release weights (`<exp>/release/params_f16.msgpack`) are loaded.
-Reference torch `.pt` checkpoints need the converter, which the port does
-not have yet: they raise.
+Reference torch `.pt` checkpoints go through the converter
+(models/convert.py) when the directory has no param file of the port's.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..models.convert import load_converted, load_torch_checkpoint
 from ..models.factory import create_model, init_model
 from ..models.weights import load_release
 from .checkpoints import (find_checkpoints, load_params, load_state_summary,
@@ -46,7 +47,8 @@ def read_description(exp_dir: str) -> dict:
 
 
 def load_model_from_exp(exp_dir: str, mode: str = "best", device=None,
-                        dtype: torch.dtype = torch.float32) -> torch.nn.Module:
+                        dtype: torch.dtype = torch.float32,
+                        strict_convert: bool = True) -> torch.nn.Module:
     """The experiment's network with its weights, in eval mode on `device`
     (default cuda).
 
@@ -55,7 +57,9 @@ def load_model_from_exp(exp_dir: str, mode: str = "best", device=None,
     release weights, or fresh parameters (with a warning) when there is no
     release either.  'new' always starts fresh.  Checkpoints live in
     `<exp_dir>/checkpoints/`, named after the directory or after the
-    description's `experiment_name`.
+    description's `experiment_name`.  With only reference torch checkpoints
+    (`<name>_<epoch>.pt`) there, the highest epoch is converted; a key the
+    converter cannot place raises unless `strict_convert=False`.
     """
     device = resolve_device(device)
     desc = read_description(exp_dir)
@@ -83,10 +87,13 @@ def load_model_from_exp(exp_dir: str, mode: str = "best", device=None,
         return model.to(device=device, dtype=dtype).eval()
 
     if not our_ckpts:
-        raise NotImplementedError(
-            f"{torch_ckpts[-1]} is a reference torch checkpoint; the port "
-            "cannot convert it yet (ROADMAP.md queue 1 item 4, "
-            "models/convert.py)")
+        path = max(torch_ckpts,
+                   key=lambda p: int(p.rsplit("_", 1)[1].split(".")[0]))
+        model = init_model(create_model(desc["model_name"],
+                                        desc["model_params"]))
+        load_converted(model, load_torch_checkpoint(path), desc["model_name"],
+                       strict_convert=strict_convert, source=path)
+        return model.to(device=device, dtype=dtype).eval()
     state_path = os.path.join(ckpt_dir, "state.msgpack")
     summary = load_state_summary(state_path) if mode == "best" else None
     path = best_checkpoint_path(summary, our_ckpts)

@@ -33,6 +33,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.common import normalize_input, unnormalize_input
+from ..models.convert import load_converted, load_torch_checkpoint
 from ..models.factory import create_model, init_model, param_count
 from ..utils.misc import seed_all
 from ..utils.pink_noise import powerlaw_psd_gaussian_torch
@@ -228,17 +229,17 @@ def train(experiment_dir: str, seed: int = 0, print_interval: int = 20,
     elif "pretrain_path" in training_params:
         pre = training_params["pretrain_path"]
         if pre.endswith(".pt"):
-            raise NotImplementedError(
-                f"pretrain_path {pre} is a reference torch checkpoint; the "
-                "port cannot convert it yet (ROADMAP.md queue 1 item 4, "
-                "models/convert.py)")
-        if os.path.isdir(pre):
+            # a reference torch checkpoint; a key the converter cannot place
+            # raises
+            load_converted(model, load_torch_checkpoint(pre), model_name,
+                           source=pre)
+        elif os.path.isdir(pre):
             # an experiment directory: warm start from its best checkpoint
             # (or its release weights)
-            state = load_model_from_exp(pre, mode="best", device="cpu").state_dict()
+            model.load_state_dict(load_model_from_exp(
+                pre, mode="best", device="cpu").state_dict(), strict=True)
         else:
-            state = ckpt.load_params(pre)
-        model.load_state_dict(state, strict=True)
+            model.load_state_dict(ckpt.load_params(pre), strict=True)
         print(f"Warm start from {pre}")
     model.to(device)
 

@@ -5,18 +5,14 @@
 
 Phases, each printed with the seconds since start:
   device       the card's name, count and power limit;
-  build        nvcc builds the roll kernel (csrc/roll.cu) and its register
-               and spill report is printed;
+  build        nvcc builds the roll kernel (csrc/roll.cu), its register
+               and spill report is printed, and g++ builds the WAV loader
+               (csrc/wavloader.cpp), both started together;
   kernel check the roll kernel against its plain PyTorch version (exact
                equality: it is a copy) at M = 7, T in {72000, 144000},
                B in {32, 37, 512}, with edge and random shifts, timed with
                CUDA events beside the plain version, one torch.gather and
                the bytes bound;
-  launch floor the forward's smallest roll launch and an empty kernel
-               launched through the same ctypes path, timed paced by the
-               host (as the kernel check times them) and queued behind a
-               busy card (device time alone), with the wrapper's host
-               time per call;
   main path    JointPipeline.forward of the port on the 3 s, 7-mic bench
                scene (.bench_fixture_v2.npz) with both release networks at
                full width in float32: a warm-up forward, then a timed one
@@ -30,14 +26,32 @@ Phases, each printed with the seconds since start:
                CLI runs), then serially and with lanes=2 with cuDNN held
                to deterministic algorithms, where the lanes' result JSONs
                must equal the serial ones apart from stage times; analyze
-               reads all three, every output is finite, and the roll
-               kernel is held against its plain version on the inputs of
-               every launch of the first pass;
+               reads all three, every output is finite, the roll kernel is
+               held against its plain version on the inputs of every
+               launch of the first pass, and SepNet at each scene's true
+               TDoAs gives the oracle-position SI-SDRi;
   training     train() of each release description at full width for one
                epoch of 3 steps on the dev scenes, warm-started from the
                release weights; losses finite, and the written checkpoint
                reads back through load_model_from_exp equal to the trained
-               parameters.
+               parameters;
+  generation   a seeded voice bank, then two scenes (7 mics, 3 talkers,
+               3 s; max_order 10 and --sample_rt60) with the room rendered
+               on the card and again on the CPU: premix within 1e-6 of its
+               peak, metadata.json equal, WAVs within 1 LSB;
+  mining       the 16 dev scenes copied and mined on the card, two again
+               on the CPU: SRP maps within 1e-5 of their peak, labels
+               equal (a difference only for a candidate within that
+               tolerance of a detection threshold);
+  baselines    MicArray with the MUSIC and TOPS prune methods on dev scene
+               00000, card against CPU: maps within 1e-8 of their peak,
+               pruned patches equal; TOPS's smallest singular value by
+               svdvals against the Gram route it uses;
+  loader       the native WAV loader's reads of the dev mixtures equal to
+               utils.audio's.
+The roll kernel's launch count is set to 0 before the training,
+generation, mining and baselines phases and read after each; the run fails
+unless each is 0.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernel table as JSON.  Any fault prints a traceback and exits 1 without
@@ -114,35 +128,6 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def queued_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of `fn` with the card kept busy while the host
-    queues the calls, so that host time per call does not show."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(100_000_000)  # ~50 ms of spinning on the card
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def host_us(fn, reps: int = 2000) -> float:
-    """Mean host time of one call of `fn`, in microseconds."""
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    us = (time.perf_counter() - t0) / reps * 1e6
-    sync()
-    return us
-
-
 def device_phase() -> dict:
     import torch
 
@@ -166,15 +151,29 @@ def device_phase() -> dict:
     return {"platform": "gpu", "kind": name, "count": count}
 
 
-def build_phase() -> None:
-    from acousticswarms_speech_tpu_torch.ops import roll_kernel
+def build_phase() -> dict:
+    """nvcc builds the roll kernel and g++ the WAV loader, both started
+    together; returns each build's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    t0 = time.time()
-    path = roll_kernel.build()
-    log(f"build: {os.path.relpath(path, REPO)} in {time.time() - t0:.2f}s")
+    from acousticswarms_speech_tpu_torch.ops import roll_kernel
+    from acousticswarms_speech_tpu_torch.runtime import native
+
+    def timed(build):
+        t0 = time.time()
+        return build(), time.time() - t0
+
+    builds = {"roll.cu (nvcc)": roll_kernel.build,
+              "wavloader.cpp (g++)": native.build}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        futures = {k: pool.submit(timed, fn) for k, fn in builds.items()}
+        done = {k: f.result() for k, f in futures.items()}
+    for name, (path, sec) in done.items():
+        log(f"build {name}: {os.path.relpath(path, REPO)} in {sec:.2f}s")
     for line in roll_kernel.build_log().splitlines():
         if "ptxas" in line or "registers" in line or "spill" in line:
             print(f"  {line.strip()}", flush=True)
+    return {name: sec for name, (_, sec) in done.items()}
 
 
 def _shift_table(B: int, T: int, gen) -> "torch.Tensor":
@@ -236,40 +235,6 @@ def kernel_check_phase() -> None:
         log(f"kernel check B={B} M=7 T={T}: equal; kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f}")
-
-
-def launch_floor_phase() -> dict:
-    """Where the roll kernel's ~0.03 ms floor on small launches comes from:
-    the forward's smallest launch and an empty kernel through the same
-    ctypes path, timed paced by the host (cuda_ms, as the kernel check
-    times them) and queued behind a busy card (device time alone), with
-    the wrapper's host time per call."""
-    import torch
-
-    from acousticswarms_speech_tpu_torch.ops import roll_kernel
-
-    dev = torch.empty(0, device=DEVICE).device  # with its index
-    gen = torch.Generator().manual_seed(1)
-    B, T = 4, 144000
-    mix = torch.randn(7, T, generator=gen).to(dev)
-    shifts = _shift_table(B, T, gen).to(dev)
-
-    def roll():
-        roll_kernel.roll_channels_batch_cuda(mix, shifts)
-
-    def empty():
-        roll_kernel.empty_launch_cuda(dev)
-
-    out = {
-        f"roll_{B}x7x{T}": {
-            "paced_ms": cuda_ms(roll), "queued_ms": queued_ms(roll),
-            "bound_ms": 4 * (7 * T + 7 * B + 7 * B * T) / HBM_BYTES_PER_S * 1e3,
-            "wrapper_host_us": host_us(roll, 500)},
-        "empty": {"paced_ms": cuda_ms(empty), "queued_ms": queued_ms(empty),
-                  "wrapper_host_us": host_us(empty)},
-    }
-    log(f"launch floor {json.dumps(out)}")
-    return out
 
 
 def main_path_phase():
@@ -678,6 +643,9 @@ def eval_phase() -> dict:
         "roll_launches_serial_deterministic": serial_launches,
         "roll_launches_lanes": lanes_launches, "peak_memory_gb": peak_gb,
     }
+    oracle = _oracle_sisdri(pipe, scenes)
+    out["oracle_sisdri_mean"] = oracle["mean"]
+    out["oracle_sisdri"] = oracle["per_scene"]
     for label, summ in (("cuDNN default", summary),
                         ("cuDNN deterministic", det_summary)):
         log(f"eval ({label}): P {summ['precision']:.4f} R "
@@ -695,6 +663,11 @@ def eval_phase() -> dict:
         f"mixtures/s, lane utilization "
         f"{[round(u, 3) for u in stats['lane_utilization']]}; lanes results "
         f"equal to the deterministic serial ones apart from stage_times")
+    log(f"eval: SI-SDRi at the true positions (SepNet on each scene's "
+        f"metadata shifts, on the card) {oracle['mean']:.3f} dB over "
+        f"{len(oracle['values'])} talkers, beside the pipeline's "
+        f"{summary['sisdri_mean']:.3f} dB; per scene "
+        f"{json.dumps(oracle['per_scene'])}")
     log(f"eval: roll kernel launches {default_launches} serial (default), "
         f"{serial_launches} serial (deterministic), {lanes_launches} lanes; "
         f"peak device memory {peak_gb:.2f} GB")
@@ -721,6 +694,31 @@ def eval_phase() -> dict:
                              ("B", "M", "T", "ms", "plain_ms", "library_ms",
                               "bound_ms")}
     return out
+
+
+def _oracle_sisdri(pipe, scenes) -> dict:
+    """SI-SDRi of the pipeline's separation at each dev scene's true TDoAs
+    (the `shifts` of its metadata.json) against mic00_voice*.wav, as the
+    evaluation computes it: si_sdr(output) - si_sdr(mic 0's mixture)."""
+    import numpy as np
+
+    from acousticswarms_speech_tpu_torch.pipeline.evaluate import get_items
+    from acousticswarms_speech_tpu_torch.utils.metrics import si_sdr
+
+    per_scene, values = {}, []
+    for scene in scenes:
+        metadata, mix, gts = get_items(os.path.join(DEV_SET, scene))
+        voices = [k for k in metadata if k.startswith("voice")]
+        offs = [np.asarray(metadata[v]["shifts"], np.float64) for v in voices]
+        est = pipe.sep_model.infer_sample(mix, offs)
+        if est.shape != gts.shape or not np.isfinite(est).all():
+            raise AssertionError(f"oracle separation of {scene}: {est.shape}")
+        sisdri = [float(si_sdr(est[i], gts[i]) - si_sdr(mix[0], gts[i]))
+                  for i in range(len(voices))]
+        per_scene[scene] = [round(x, 3) for x in sisdri]
+        values += sisdri
+    return {"per_scene": per_scene, "values": values,
+            "mean": float(np.mean(values))}
 
 
 def _train_experiment(src_dir: str, name: str) -> str:
@@ -800,6 +798,357 @@ def train_phase() -> dict:
     return out
 
 
+# Dataset generation on the card against the CPU: two scenes of 7 mics,
+# 3 talkers and 3 s, one at max_order 10 and one with --sample_rt60.
+GEN_SCENES = [("order10", 1, {}), ("rt60", 2, {"sample_rt60": True})]
+RIR_TOL = 1e-6  # of the premix's peak: float32 sinc taps summed in float64
+SRP_TOL = 1e-5  # of the SRP map's peak: float32 sums in other orders
+MAP_TOL = 1e-8  # of a MUSIC/TOPS map's peak: complex128
+
+
+def _pcm(path: str):
+    import wave
+
+    import numpy as np
+
+    with wave.open(path) as w:
+        return np.frombuffer(w.readframes(w.getnframes()), dtype=np.int16)
+
+
+def _generate(voices, root, label, seed, extra, device):
+    """generate_sample of scene `label` on `device`; (seconds, premix)."""
+    import argparse
+
+    import numpy as np
+
+    from acousticswarms_speech_tpu_torch.data import generate_dataset, roomsim
+
+    premixes = []
+    real = roomsim.ShoeBox.simulate
+
+    def recording(self, *args, **kwargs):
+        premixes.append(real(self, *args, **kwargs))
+        return premixes[-1]
+
+    args = argparse.Namespace(
+        output_path=os.path.join(root, str(device)), n_mics=7,
+        n_voices_min=3, n_voices_max=3, sr=48000, duration=3.0, dimensions=3,
+        max_order=10, max_order_cap=150, sample_rt60=False,
+        generate_colocated=False, device=device)
+    vars(args).update(extra)
+    roomsim.ShoeBox.simulate = recording
+    try:
+        t0 = time.time()
+        generate_dataset.generate_sample(voices, args, label, 0,
+                                         np.random.RandomState(seed))
+        sec = time.time() - t0
+    finally:
+        roomsim.ShoeBox.simulate = real
+    if len(premixes) != 1:
+        raise AssertionError(f"{label}: {len(premixes)} renders")
+    return sec, premixes[0]
+
+
+def generation_phase() -> dict:
+    """A seeded voice bank, then each scene of GEN_SCENES rendered with the
+    room on the card and again on the CPU: premix, metadata.json and WAVs
+    compared."""
+    import numpy as np
+
+    from acousticswarms_speech_tpu_torch.data import roomsim, voicegen
+
+    root = os.path.join(OUT_DIR, "generation")
+    shutil.rmtree(root, ignore_errors=True)
+    bank = os.path.join(root, "voices")
+    t0 = time.time()
+    voicegen.generate_voice_bank(bank, n_speakers=6, clips_per_speaker=2,
+                                 duration=3.0, seed=0)
+    log(f"generation: voice bank (6 speakers x 2 utterances of 3 s) in "
+        f"{time.time() - t0:.2f}s")
+    voices = [os.path.join(bank, d) for d in sorted(os.listdir(bank))]
+    out = {}
+    for label, seed, extra in GEN_SCENES:
+        card_s, card = _generate(voices, root, label, seed, extra, DEVICE)
+        cpu_s, cpu = _generate(voices, root, label, seed, extra, "cpu")
+        if card.shape != cpu.shape or not np.isfinite(card).all():
+            raise AssertionError(f"{label}: premix {card.shape} vs {cpu.shape}")
+        err = float(np.abs(card - cpu).max())
+        peak = float(np.abs(cpu).max())
+        if not err <= RIR_TOL * peak:
+            raise AssertionError(f"{label}: premix card vs CPU {err} "
+                                 f"(peak {peak})")
+        dirs = [os.path.join(root, d, label, "00000") for d in (DEVICE, "cpu")]
+        metas = []
+        for d in dirs:
+            with open(os.path.join(d, "metadata.json")) as f:
+                metas.append(json.load(f))
+        if metas[0] != metas[1]:
+            raise AssertionError(f"{label}: metadata.json differs")
+        wavs = sorted(f for f in os.listdir(dirs[1]) if f.endswith(".wav"))
+        if len(wavs) != 10:  # 7 mixtures, 3 GT images
+            raise AssertionError(f"{label}: {wavs}")
+        lsb = max(int(np.abs(_pcm(os.path.join(dirs[0], w)).astype(np.int32)
+                             - _pcm(os.path.join(dirs[1], w))).max())
+                  for w in wavs)
+        if lsb > 1:
+            raise AssertionError(f"{label}: WAVs differ by {lsb} LSB")
+        meta = metas[1]
+        order = (roomsim.inverse_sabine(meta["rt60"], meta["Room_dimensions"])
+                 [1] if "rt60" in meta else 10)
+        out[label] = {"card_s": card_s, "cpu_s": cpu_s, "premix_max_abs_err":
+                      err, "premix_peak": peak, "wav_max_lsb": lsb,
+                      "premix_shape": list(card.shape),
+                      "max_order": min(order, 150),
+                      "rt60": meta.get("rt60"),
+                      "absorption": meta["absorption"]}
+        log(f"generation {label}: {out[label]['max_order']} reflections max "
+            f"(rt60 {meta.get('rt60')}, absorption {meta['absorption']:.3f}); "
+            f"card {card_s:.3f}s, CPU {cpu_s:.3f}s per scene; premix "
+            f"{tuple(card.shape)} card vs CPU max abs err {err:.3e} (peak "
+            f"{peak:.4f}); metadata.json equal; WAVs within {lsb} LSB")
+    return out
+
+
+def _threshold_margin(engine, offsets) -> float:
+    """How far the SRP map value of the cluster nearest to a candidate's
+    TDoA offsets lies from the two peak-detection thresholds of
+    SrpEngine.find_valid_peaks at that cluster's cells."""
+    import numpy as np
+
+    geom = engine.geom
+    c = int(np.abs(geom.cluster_offsets - np.asarray(offsets)).max(1).argmin())
+    t0, t_lo, t_hi = engine.threshold
+    t = float(np.clip(t0 * engine.max_power, t_lo, t_hi))
+    v = float(engine.srp_map[c])
+    margins = [abs(v - t * (0.9 + 1 / geom.dis_matrix[ix, iy])) for ix, iy, _
+               in np.argwhere(geom.cluster_index == c)]
+    margins += [abs(v - 4 * t * (1 + 1 / geom.dis_matrix[ix, iy])) for ix, iy, _
+                in np.argwhere(geom.cluster_index == c)]
+    return min(margins) if margins else float("inf")
+
+
+def _mine(scene_dir, device) -> dict:
+    from acousticswarms_speech_tpu_torch.data import generate_srp_sample
+    from acousticswarms_speech_tpu_torch.search.srp_pruning import SrpEngine
+
+    engines = []
+    real = SrpEngine.compute_map
+
+    def recording(self, *args, **kwargs):
+        engines.append(self)
+        return real(self, *args, **kwargs)
+
+    SrpEngine.compute_map = recording
+    try:
+        t0 = time.time()
+        neg, pos = generate_srp_sample.mine_sample(scene_dir, device=device)
+        sync()
+        sec = time.time() - t0
+    finally:
+        SrpEngine.compute_map = real
+    return {"neg": neg, "pos": pos, "engine": engines[-1], "s": sec}
+
+
+def mining_phase() -> dict:
+    """The 16 dev scenes copied and mined on the card, two of them again on
+    the CPU (in a copy of their own: mining writes challeng_sample.json
+    into the scene directory): SRP maps and candidate labels compared."""
+    import numpy as np
+
+    scenes = sorted(d for d in os.listdir(DEV_SET)
+                    if os.path.isdir(os.path.join(DEV_SET, d)))
+    roots = {dev: os.path.join(OUT_DIR, "mine", str(dev))
+             for dev in (DEVICE, "cpu")}
+    for dev, root in roots.items():
+        shutil.rmtree(root, ignore_errors=True)
+        for scene in scenes if dev == DEVICE else scenes[:2]:
+            shutil.copytree(os.path.join(DEV_SET, scene),
+                            os.path.join(root, scene))
+    card = {s: _mine(os.path.join(roots[DEVICE], s), DEVICE) for s in scenes}
+    out = {"scenes": len(scenes), "negatives": {}, "card_s": {}, "cpu_s": {}}
+    for scene, r in card.items():
+        with open(os.path.join(roots[DEVICE], scene,
+                               "challeng_sample.json")) as f:
+            if json.load(f) != {"negative_sample": r["neg"],
+                                "positive_sample": r["pos"]}:
+                raise AssertionError(f"mining {scene}: JSON != result")
+        out["negatives"][scene] = len(r["neg"])
+        out["card_s"][scene] = r["s"]
+    for scene in scenes[:2]:
+        r = _mine(os.path.join(roots["cpu"], scene), "cpu")
+        got_map, want_map = card[scene]["engine"].srp_map, r["engine"].srp_map
+        peak = float(np.abs(want_map).max())
+        err = float(np.abs(got_map - want_map).max())
+        if not err <= SRP_TOL * peak:
+            raise AssertionError(f"mining {scene}: SRP map card vs CPU {err}")
+        for kind in ("neg", "pos"):
+            a = {tuple(x) for x in card[scene][kind]}
+            b = {tuple(x) for x in r[kind]}
+            for cand in sorted(a ^ b):
+                margin = _threshold_margin(r["engine"], cand)
+                log(f"mining {scene}: {kind} candidate {list(cand)} found "
+                    f"only on the {'card' if cand in a else 'CPU'}; its "
+                    f"map value lies {margin:.3e} from a threshold")
+                if margin > SRP_TOL * peak:
+                    raise AssertionError(f"mining {scene}: {kind} lists "
+                                         f"differ at {list(cand)}")
+        out["cpu_s"][scene] = r["s"]
+        log(f"mining {scene}: SRP map card vs CPU max abs err {err:.3e} (map "
+            f"max {peak:.4f}); {len(r['neg'])} negatives and {len(r['pos'])} "
+            f"positives on the CPU, {len(card[scene]['neg'])} and "
+            f"{len(card[scene]['pos'])} on the card; CPU {r['s']:.3f}s")
+    card_s = list(out["card_s"].values())
+    out["card_s_median"] = statistics.median(card_s)
+    log(f"mining: negatives per scene {out['negatives']}; card seconds per "
+        f"scene median {out['card_s_median']:.3f} (first {card_s[0]:.3f}, "
+        f"max {max(card_s):.3f})")
+    return out
+
+
+def _baseline_map(mic_pos, range_spk, mix, method, device):
+    """MicArray(prune_method=method) on `device`: (float64 map, patches,
+    seconds)."""
+    from acousticswarms_speech_tpu_torch.pipeline import mic_array
+
+    arr = mic_array.MicArray(mic_pos, spk_range=range_spk,
+                             prune_method=method, device=device)
+    maps = []
+    real = mic_array.BASELINE_MAPS[method]
+
+    def recording(*args, **kwargs):
+        maps.append(real(*args, **kwargs))
+        return maps[-1]
+
+    mic_array.BASELINE_MAPS[method] = recording
+    try:
+        sync()
+        t0 = time.time()
+        patches, _ = arr.apply_srp_phat(mix)
+        sync()
+        sec = time.time() - t0
+    finally:
+        mic_array.BASELINE_MAPS[method] = real
+    return maps[0], patches, sec
+
+
+def _tops_svd_check(mic_pos, range_spk, mix) -> dict:
+    """TOPS's smallest singular value on the card two ways, on dev scene
+    00000's stacked projections: torch.linalg.svdvals of D, and the square
+    root of the smallest eigenvalue of the 3x3 Gram D D^H."""
+    import torch
+
+    from acousticswarms_speech_tpu_torch.constants import FREQ_BINS, FS, N_FFT
+    from acousticswarms_speech_tpu_torch.dsp import music, tops
+    from acousticswarms_speech_tpu_torch.dsp.geometry import build_geometry
+
+    geom = build_geometry(mic_pos, range_spk, grid_size=0.05)
+    mode = music.grid_mode_vectors(geom.grids, geom.mic_pos, FREQ_BINS, FS,
+                                   N_FFT, device=DEVICE)
+    node = tops.TOPS(geom.mic_pos, geom.grids, FREQ_BINS, mode, nfft=N_FFT)
+    X = music._windows_stft(mix, mix.shape[1], 1, N_FFT, DEVICE)[0]
+    D = node.projections(X)
+
+    def gram():  # what TOPS.process computes
+        G = D @ D.conj().transpose(-1, -2)
+        return torch.linalg.eigvalsh(G)[:, 0].clamp(min=0).sqrt()
+
+    svd = []  # one call: it takes seconds on the card
+    svd_ms = cuda_ms(lambda: svd.append(torch.linalg.svdvals(D)[:, -1]), 1, 0)
+    a, b = svd[0], gram()
+    return {"D_shape": list(D.shape), "svdvals_ms": svd_ms,
+            "gram_eigvalsh_ms": cuda_ms(gram, 5, 1),
+            "inverse_max_rel_diff": float(((1 / a - 1 / b).abs().max()
+                                           / (1 / a).max()).item())}
+
+
+def baselines_phase() -> dict:
+    """MicArray with the MUSIC and TOPS prune methods on dev scene 00000,
+    on the card and on the CPU: maps and pruned patch lists compared."""
+    import numpy as np
+
+    from acousticswarms_speech_tpu_torch.pipeline.evaluate import (
+        get_items, preprocess_metadata)
+
+    metadata, mix, _ = get_items(os.path.join(DEV_SET, "00000"))
+    _, mic_pos, _, _, _, range_spk = preprocess_metadata(metadata)
+    out = {}
+    for method in ("MUSIC", "TOPS"):
+        card_map, card_patches, card_s = _baseline_map(
+            mic_pos, range_spk, mix, method, DEVICE)
+        cpu_map, cpu_patches, cpu_s = _baseline_map(
+            mic_pos, range_spk, mix, method, "cpu")
+        peak = float(np.abs(cpu_map).max())
+        err = float(np.abs(card_map - cpu_map).max())
+        if not (np.isfinite(card_map).all() and err <= MAP_TOL * peak):
+            raise AssertionError(f"{method}: map card vs CPU {err} ({peak})")
+        same = len(card_patches) == len(cpu_patches) and all(
+            np.array_equal(a.sample_offset, b.sample_offset)
+            and np.array_equal(a.width_list, b.width_list)
+            for a, b in zip(card_patches, cpu_patches))
+        if not same or not card_patches:
+            raise AssertionError(f"{method}: patches {len(card_patches)} on "
+                                 f"the card, {len(cpu_patches)} on the CPU")
+        out[method] = {"card_s": card_s, "cpu_s": cpu_s, "map_max_abs_err": err,
+                       "map_peak": peak, "patches": len(card_patches),
+                       "grid_points": len(cpu_map)}
+        log(f"baselines {method}: G={len(cpu_map)}; map card {card_s:.3f}s, "
+            f"CPU {cpu_s:.3f}s; card vs CPU max abs err {err:.3e} (map max "
+            f"{peak:.4g}); {len(card_patches)} patches, equal")
+    out["tops_svd"] = _tops_svd_check(mic_pos, range_spk, mix)
+    log(f"baselines TOPS smallest singular value on the card: "
+        f"{json.dumps(out['tops_svd'])}")
+    return out
+
+
+def loader_phase(build_s: dict) -> dict:
+    """native.load_wavs of the 16 dev scenes' mixtures against
+    utils.audio's reads."""
+    import numpy as np
+    import torch
+
+    from acousticswarms_speech_tpu_torch.runtime import native
+    from acousticswarms_speech_tpu_torch.utils.audio import read_wav
+
+    scenes = sorted(d for d in os.listdir(DEV_SET)
+                    if os.path.isdir(os.path.join(DEV_SET, d)))
+    paths = [[os.path.join(DEV_SET, s, f"mic{m:02d}_mixed.wav")
+              for m in range(7)] for s in scenes]
+    t0 = time.time()
+    got = [native.load_wavs(p, len(native.load_wav(p[0]))) for p in paths]
+    native_s = time.time() - t0
+    t0 = time.time()
+    want = [np.concatenate([read_wav(f)[0] for f in p]) for p in paths]
+    python_s = time.time() - t0
+    for s, a, b in zip(scenes, got, want):
+        if not torch.equal(torch.from_numpy(a), torch.from_numpy(b)):
+            raise AssertionError(f"loader: scene {s} differs")
+    out = {"build_s": build_s["wavloader.cpp (g++)"], "native_read_s":
+           native_s, "python_read_s": python_s, "scenes": len(scenes)}
+    log(f"loader: built in {out['build_s']:.2f}s; {len(scenes)} scenes x 7 "
+        f"mixtures read natively in {native_s:.4f}s and by utils.audio in "
+        f"{python_s:.4f}s, equal")
+    return out
+
+
+def counted(name: str, phase, *args):
+    """Run a phase with the roll kernel's launch count set to 0 just before
+    and read just after; these paths never roll, so it must stay 0."""
+    from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
+        roll_channels_batch_cuda
+
+    t0 = time.time()
+    roll_channels_batch_cuda.launches = 0
+    result = phase(*args)
+    sync()
+    launches = roll_channels_batch_cuda.launches
+    log(f"{name} phase {time.time() - t0:.2f}s; roll kernel launches "
+        f"{launches}")
+    if launches != 0:
+        raise AssertionError(f"{name} launched the roll kernel {launches} "
+                             f"times")
+    return result, launches
+
+
 def _flatten_tree(tree, prefix=""):
     flat = {}
     for k, v in tree.items():
@@ -825,9 +1174,8 @@ def main() -> int:
             roll_channels_batch_cuda  # (fails early outside the repo)
 
         device = device_phase()
-        build_phase()
+        build_s = build_phase()
         kernel_check_phase()
-        launch_floor_phase()
         pipe, mix, shapes, launches, summary = main_path_phase()
         kernel_row = reference_phase(pipe, mix, shapes, launches)
         log(f"main path summary {json.dumps(summary)}")
@@ -846,6 +1194,13 @@ def main() -> int:
         if train_launches != 0:
             raise AssertionError(f"training launched the roll kernel "
                                  f"{train_launches} times")
+        generation, gen_launches = counted("generation", generation_phase)
+        mining, mine_launches = counted("mining", mining_phase)
+        baselines, base_launches = counted("baselines", baselines_phase)
+        loader = loader_phase(build_s)
+        new_paths = {"generation": generation, "mining": mining,
+                     "baselines": baselines, "loader": loader}
+        log(f"new paths: {json.dumps(new_paths)}")
         kernel_row["launches_by_path"] = {
             "joint_forward": launches,
             "evaluate_serial": evaluation["roll_launches_serial"],
@@ -853,6 +1208,9 @@ def main() -> int:
                 evaluation["roll_launches_serial_deterministic"],
             "evaluate_lanes": evaluation["roll_launches_lanes"],
             "train": train_launches,
+            "generation": gen_launches,
+            "mining": mine_launches,
+            "baselines": base_launches,
         }
         kernel_row["eval_largest_launch"] = evaluation["largest_launch"]
     except BaseException:

@@ -99,8 +99,3 @@ def test_roll_kernel_counts_launches_and_runs_in_threads(cuda):
         th.join()
     assert not bad
     assert roll_kernel.roll_channels_batch_cuda.launches - before == 100
-
-
-def test_empty_probe_launches(cuda):
-    roll_kernel.empty_launch_cuda(cuda)
-    torch.cuda.synchronize()

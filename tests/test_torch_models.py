@@ -58,12 +58,13 @@ def test_spotnet_release_matches_jax():
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("n_speakers", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("n_speakers", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_separation_release_matches_jax(sep_pair, n_speakers):
     """SeparationInference (zero-fill roll, normalization over the valid
     speakers, SepNet with max_speakers 5) on a 4096-sample slice of the
-    bench scene.  The JAX package pads the speaker axis to 5 and masks it;
-    the port runs the given speakers only.  Tolerance: 1e-4 of the output's
+    bench scene, for up to NMS_MAX_OUT = 8 heads.  The JAX package pads the
+    speaker axis to a multiple of max_speakers (5 or 10) and masks it; the
+    port runs the given speakers only.  Tolerance: 1e-4 of the output's
     peak, float32 sums in other orders through the Conformer bottleneck."""
     jax_sep, port_sep = sep_pair
     mix = np.load(os.path.join(REPO, ".bench_fixture_v2.npz"))["mix"]
@@ -76,3 +77,31 @@ def test_separation_release_matches_jax(sep_pair, n_speakers):
     assert got.shape == want.shape == (n_speakers, 4096)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.slow
+def test_oracle_positions_dev_scene_matches_jax(sep_pair):
+    """Separation at the true TDoAs (the `shifts` of metadata.json) of dev
+    scene 00000, full width, T = 72000, S = 2: both packages' outputs agree
+    within 1e-4 of the peak, and the test prints each package's SI-SDRi
+    against mic00_voice0{0,1}.wav.  The SI-SDRi says whether the pipeline's
+    low SI-SDRi on the dev scenes comes from the scenes or from the search."""
+    from acousticswarms_speech_tpu_torch.pipeline.evaluate import get_items
+    from acousticswarms_speech_tpu_torch.utils.metrics import si_sdr
+
+    jax_sep, port_sep = sep_pair
+    metadata, mix, gts = get_items(
+        os.path.join(REPO, ".devdata_v2", "test", "00000"))
+    voices = sorted(k for k in metadata if k.startswith("voice"))
+    offs = [np.asarray(metadata[v]["shifts"], np.float64) for v in voices]
+    want = jax_sep.infer_sample(mix, offs)
+    got = port_sep.infer_sample(mix, offs)
+    assert got.shape == want.shape == (2, 72000) == gts.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())
+    for name, est in (("jax", want), ("port", got)):
+        sisdri = [si_sdr(est[i], gts[i]) - si_sdr(mix[0], gts[i])
+                  for i in range(2)]
+        print(f"oracle-position SI-SDRi ({name}): "
+              f"{[round(float(x), 3) for x in sisdri]} dB, mean "
+              f"{float(np.mean(sisdri)):.3f} dB")

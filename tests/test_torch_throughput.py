@@ -72,6 +72,47 @@ def test_lanes_share_networks_and_device():
     assert lane.spot_model.calls == 0
 
 
+# A lane's own per-mixture state; every other attribute is the pipeline's.
+LANE_STATE = {"spot_model", "times", "previous_config", "mic_processor"}
+
+
+def test_lane_has_every_attribute_of_a_fresh_pipeline():
+    """make_lane copies the pipeline's attributes (not a hand-kept list), so
+    every attribute a freshly built JointPipeline has is on the lane: the
+    per-mixture state fresh, everything else shared."""
+    pipe = JointPipeline(SpotNet(**SPOT_SMALL), SepNet(**SEP_SMALL),
+                         device="cpu")
+    pipe.times[0] = 3.0
+    pipe.previous_config = "a mic configuration"
+    pipe.mic_processor = object()
+    lane = make_lane(pipe)
+    fresh = JointPipeline(SpotNet(**SPOT_SMALL), SepNet(**SEP_SMALL),
+                          device="cpu")
+    assert set(vars(fresh)) <= set(vars(lane))
+    assert LANE_STATE <= set(vars(fresh))
+    for name in set(vars(fresh)) - LANE_STATE:
+        assert getattr(lane, name) is getattr(pipe, name), name
+    assert lane.times == [0.0] * 5 and lane.times is not pipe.times
+    assert lane.previous_config is None and lane.mic_processor is None
+    assert isinstance(lane, JointPipeline)
+
+
+def test_attribute_set_after_construction_reaches_lane():
+    """An attribute set on the pipeline after construction (as a later
+    __init__ or a caller might add one) reaches every lane of a runner."""
+    pipe = JointPipeline(SpotNet(**SPOT_SMALL), SepNet(**SEP_SMALL),
+                         device="cpu")
+    marker = object()
+    pipe.added_later = marker
+    pipe.sweep_crop_seconds = 0.75
+    runner = PipelinedRunner(pipe, n_lanes=3)
+    assert runner.lanes[0] is pipe
+    for lane in runner.lanes[1:]:
+        assert lane.added_later is marker
+        assert lane.sweep_crop_seconds == 0.75
+        assert lane.spot_model.executor is pipe.spot_model.executor
+
+
 def test_sweep_lanes_count_their_own_calls():
     """Twelve lanes (more than the cores) sweep one shared executor from
     their own threads with a short switch interval: each lane counts exactly

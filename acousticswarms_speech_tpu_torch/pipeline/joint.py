@@ -26,20 +26,28 @@ from .mic_array import MicArray
 class JointPipeline:
     def __init__(self, spot_model: torch.nn.Module, sep_model: torch.nn.Module,
                  device=None, use_bf16: bool = False,
-                 sweep_crop_seconds: float | None = None):
+                 sweep_crop_seconds: float | None = None, mesh=None):
         """`spot_model`: a SpotNet, `sep_model`: a SepNet, both with their
         weights.  `device` defaults to cuda.
+
+        `mesh` (parallel/mesh.py): the coarse, fine and head sweeps shard
+        their candidates over its `cand` ranks (search/spotform.py), and
+        the pipeline runs on the mesh's device.  SRP, subdivision,
+        clustering and separation run unsharded on every rank, as in the
+        JAX package, so every rank must call `forward` with the same
+        mixture, and every rank returns the same result.
 
         `sweep_crop_seconds` (or env SPOT_CROP_SECONDS): when > 0, the coarse
         and fine selection sweeps run on the loudest `sweep_crop_seconds`
         window of the mixture instead of all of it; the cluster heads then
         get one extra full-length strict sweep for NMS and output audio.
         Default 1.5 s, as in the JAX package; 0 sweeps the full mixture."""
-        self.device = resolve_device(device)
+        self.device = resolve_device(device, mesh)
+        self.mesh = mesh
         # the pipeline's own view of the executor, which counts its spot
         # calls (lanes of pipeline/throughput.py share the executor)
         self.spot_model = SweepLane(SpotformExecutor(
-            spot_model, use_bf16=use_bf16, device=self.device))
+            spot_model, use_bf16=use_bf16, device=self.device, mesh=mesh))
         self.sep_model = SeparationInference(sep_model, use_bf16=use_bf16,
                                              device=self.device)
         env_crop = os.environ.get("SPOT_CROP_SECONDS")
@@ -55,7 +63,7 @@ class JointPipeline:
                      **kwargs) -> "JointPipeline":
         """Both networks from experiment directories' release weights
         (`<dir>/release/params_f16.msgpack`), in float32."""
-        device = resolve_device(device)
+        device = resolve_device(device, kwargs.get("mesh"))
         return cls(load_release(spot_dir, device), load_release(sep_dir, device),
                    device=device, **kwargs)
 
@@ -67,7 +75,7 @@ class JointPipeline:
         release weights (training/experiment.py)."""
         from ..training.experiment import load_model_from_exp
 
-        device = resolve_device(device)
+        device = resolve_device(device, kwargs.get("mesh"))
         return cls(load_model_from_exp(spot_exp_dir, mode="best", device=device),
                    load_model_from_exp(sep_exp_dir, mode="best", device=device),
                    device=device, **kwargs)

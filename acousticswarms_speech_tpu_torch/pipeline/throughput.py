@@ -14,6 +14,11 @@ in flight never touch each other's bookkeeping.
 
 Unlike the JAX package's runner, once one item fails no lane claims a new
 item, and `run` raises the first error after the lanes have stopped.
+
+A pipeline on a mesh of more than one rank (parallel/mesh.py) runs one
+lane only.  Its sweeps are collectives, and two lane threads issuing them
+on one process group could pair them up in another order on each rank.
+The JAX package has no such hazard: its sharded sweep is one call.
 """
 from __future__ import annotations
 
@@ -51,6 +56,12 @@ class PipelinedRunner:
 
     def __init__(self, pipe: JointPipeline, n_lanes: int = 2,
                  setup_fn=None):
+        mesh = getattr(pipe, "mesh", None)
+        if n_lanes > 1 and mesh is not None and mesh.size > 1:
+            raise ValueError(
+                f"{n_lanes} lanes on a mesh of {mesh.size} ranks: lanes issue "
+                f"the sweeps' collectives from several threads, which the "
+                f"ranks could pair up in different orders; use one lane")
         self.lanes = [pipe]
         clone = getattr(pipe, "make_lane", None) or (lambda: make_lane(pipe))
         for _ in range(n_lanes - 1):

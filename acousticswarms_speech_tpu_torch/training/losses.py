@@ -6,6 +6,12 @@ base_network.py:12-30.  The SNR/SI-SDR terms follow asteroid's
 `SingleSrcNegSDR` (zero mean, eps-stabilized, negated dB).  The reference's
 data-dependent `if any(mask)` branches are masked means, as in the JAX
 package.
+
+Each loss takes an optional `count_gt`: the targets of the whole batch
+when `output`/`gt` are one rank's rows of it (parallel/mesh.py's
+data-parallel step).  Its means then divide by the whole batch's counts,
+so the loss is that rank's share of the whole batch's loss, and the
+shares sum to it.
 """
 from __future__ import annotations
 
@@ -36,12 +42,16 @@ def neg_sdr(est: torch.Tensor, target: torch.Tensor, sdr_type: str = "snr",
     return -10.0 * torch.log10(ratio)
 
 
-def l1_loss(output: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(output - gt))
+def l1_loss(output: torch.Tensor, gt: torch.Tensor,
+            count_gt: torch.Tensor | None = None) -> torch.Tensor:
+    if count_gt is None:
+        return torch.mean(torch.abs(output - gt))
+    return torch.sum(torch.abs(output - gt)) / count_gt.numel()
 
 
 def composite_loss(output: torch.Tensor, gt: torch.Tensor, r: float = 0.0,
-                   neg_scale: float = 1.0) -> torch.Tensor:
+                   neg_scale: float = 1.0,
+                   count_gt: torch.Tensor | None = None) -> torch.Tensor:
     """CompositeLoss (losses.py:6-46): all-zero (negative) targets get L1
     only, scaled by `neg_scale`; positive targets get r*L1 + (1-r)*SNR."""
     gt2 = gt[:, 0]
@@ -52,8 +62,10 @@ def composite_loss(output: torch.Tensor, gt: torch.Tensor, r: float = 0.0,
     snr_per = neg_sdr(out2, gt2, "snr")
 
     zero = torch.zeros((), dtype=l1_per.dtype, device=l1_per.device)
-    n_neg = neg_mask.sum()
-    n_pos = (~neg_mask).sum()
+    count_neg = (neg_mask if count_gt is None
+                 else torch.amax(torch.abs(count_gt[:, 0]), dim=1) == 0)
+    n_neg = count_neg.sum()
+    n_pos = (~count_neg).sum()
     loss = torch.where(
         n_neg > 0,
         torch.where(neg_mask, l1_per, zero).sum() / n_neg.clamp(min=1)
@@ -68,14 +80,17 @@ def composite_loss(output: torch.Tensor, gt: torch.Tensor, r: float = 0.0,
     return loss + torch.where(n_pos > 0, pos_term, zero)
 
 
-def sisdr_loss(output: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+def sisdr_loss(output: torch.Tensor, gt: torch.Tensor,
+               count_gt: torch.Tensor | None = None) -> torch.Tensor:
     """SISDRLoss (losses.py:48-66): mean negative SI-SDR over non-silent
     targets."""
     gt2 = gt[:, 0]
     out2 = output[:, 0]
     pos_mask = torch.amax(torch.abs(gt2), dim=1) > 0
     per = neg_sdr(out2, gt2, "sisdr")
-    n = pos_mask.sum().clamp(min=1)
+    count_pos = (pos_mask if count_gt is None
+                 else torch.amax(torch.abs(count_gt[:, 0]), dim=1) > 0)
+    n = count_pos.sum().clamp(min=1)
     return torch.where(pos_mask, per, torch.zeros_like(per)).sum() / n
 
 
@@ -84,11 +99,14 @@ def get_loss_fn(name: str):
     if name == "l1":
         return l1_loss
     if name == "snr":
-        return lambda o, g: composite_loss(o, g, r=0.0, neg_scale=1.0)
+        return lambda o, g, **kw: composite_loss(o, g, r=0.0, neg_scale=1.0,
+                                                 **kw)
     if name == "snr_w_scaled_neg":
-        return lambda o, g: composite_loss(o, g, r=0.0, neg_scale=500.0)
+        return lambda o, g, **kw: composite_loss(o, g, r=0.0,
+                                                 neg_scale=500.0, **kw)
     if name == "fused":
-        return lambda o, g: composite_loss(o, g, r=0.05, neg_scale=1.0)
+        return lambda o, g, **kw: composite_loss(o, g, r=0.05, neg_scale=1.0,
+                                                 **kw)
     if name == "sisdr":
         return sisdr_loss
     raise ValueError(f"Unknown loss '{name}'")

@@ -73,14 +73,20 @@ def _device_perturb(generator: torch.Generator, data: torch.Tensor,
 
 
 def compute_loss(model: torch.nn.Module, model_name: str, loss_fn,
-                 batch) -> torch.Tensor:
+                 batch, count_gt: torch.Tensor | None = None) -> torch.Tensor:
+    """The loss of `batch`; with `count_gt` (the targets of a whole batch
+    of which `batch` holds some rows), this batch's share of that batch's
+    loss (training/losses.py)."""
     data, gt, cond = batch  # cond: window embedding or speaker counts
     normed, means, stds = normalize_input(data)
     out = unnormalize_input(model(normed, cond), means, stds)
     if model_name == "SpeakerLocalization":
-        return loss_fn(out, gt)
+        return loss_fn(out, gt, count_gt=count_gt)
     B, S, T = out.shape
-    return loss_fn(out.reshape(B * S, 1, T), gt.reshape(B * S, 1, T))
+    if count_gt is not None:
+        count_gt = count_gt.reshape(-1, 1, T)
+    return loss_fn(out.reshape(B * S, 1, T), gt.reshape(B * S, 1, T),
+                   count_gt=count_gt)
 
 
 @torch.no_grad()

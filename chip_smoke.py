@@ -48,10 +48,25 @@ Phases, each printed with the seconds since start:
                pruned patches equal; TOPS's smallest singular value by
                svdvals against the Gram route it uses;
   loader       the native WAV loader's reads of the dev mixtures equal to
-               utils.audio's.
+               utils.audio's;
+  mesh         parallel/ on the card, in spawned ranks that load the
+               release networks themselves: (a) the main path's fine sweep
+               (336 candidates, T = 72000) through SpotformExecutor(mesh=)
+               on an nccl mesh of world size 1, against the unsharded
+               sweep; (b) two gloo ranks sharing the card, cuDNN held to
+               deterministic algorithms: the same sweep sharded 168 + 168
+               against the unsharded one (powers rtol 1e-4, SI-SDR matrix
+               atol 1e-2, waveforms 1e-4 of the peak), then
+               JointPipeline(mesh=).forward of the bench scene on both
+               ranks against the unsharded forward (the same heads; audio
+               within 1e-4 of the peak); (c) the dry run
+               (parallel/dryrun.py) on two gloo ranks.  Each rank counts its
+               roll kernel launches over its sharded work and holds the
+               kernel against its plain version on its largest launch.
 The roll kernel's launch count is set to 0 before the training,
 generation, mining and baselines phases and read after each; the run fails
-unless each is 0.
+unless each is 0.  The mesh phase's ranks count theirs (mesh_rank0,
+mesh_rank1); the run fails unless each is above 0.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernel table as JSON.  Any fault prints a traceback and exits 1 without
@@ -1130,6 +1145,152 @@ def loader_phase(build_s: dict) -> dict:
     return out
 
 
+MESH_TIMEOUT_S = 180  # each rank's process-group timeout
+MESH_DEADLINE_S = 240  # each launch's
+SWEEP_RTOL = 1e-4  # powers: rows run in other chunk batches on cuDNN
+SIM_ATOL = 1e-2  # dB, the SI-SDR matrix
+WAVE_TOL = 1e-4  # of the peak: waveforms and separated audio
+
+
+def _sweep_close(label: str, cmp: dict) -> bool:
+    """Check a rank's sharded sweep against the unsharded one; True when
+    they are bit-equal."""
+    import numpy as np
+
+    exact = cmp["waveform_max_abs_diff"] == 0 and cmp["sisdr_max_abs_diff"] == 0
+    for key in ("powers", "powers_win"):
+        got, want = cmp[key]
+        rel = float(np.max(np.abs(got - want) / np.abs(want)))
+        log(f"mesh {label}: {key} max rel diff {rel:.3e}")
+        exact = exact and bool(np.array_equal(got, want))
+        if not rel <= SWEEP_RTOL:
+            raise AssertionError(f"mesh {label}: {key} differ by {rel}")
+    if not cmp["sisdr_max_abs_diff"] <= SIM_ATOL:
+        raise AssertionError(f"mesh {label}: SI-SDR matrix differs by "
+                             f"{cmp['sisdr_max_abs_diff']}")
+    if not cmp["waveform_max_abs_diff"] <= WAVE_TOL * cmp["waveform_peak"]:
+        raise AssertionError(f"mesh {label}: waveforms differ by "
+                             f"{cmp['waveform_max_abs_diff']}")
+    log(f"mesh {label}: sharded sweep (K={cmp['K']}, T={cmp['T']}) vs "
+        f"unsharded: SI-SDR matrix max abs diff {cmp['sisdr_max_abs_diff']:.3e}"
+        f" dB, waveforms {cmp['waveform_max_abs_diff']:.3e} (peak "
+        f"{cmp['waveform_peak']:.4f}); bit-equal: {exact}")
+    return exact
+
+
+def _same_heads(got: dict, want: dict) -> list[str]:
+    """Where two forwards' final heads differ (centers within 1e-5 m and
+    localization offsets within 1e-4 samples, as the CPU tests hold)."""
+    import numpy as np
+
+    if len(got["heads"]) != len(want["heads"]):
+        return [f"{len(got['heads'])} heads vs {len(want['heads'])}"]
+    diffs = []
+    for k, (g, w) in enumerate(zip(got["heads"], want["heads"])):
+        if not (np.allclose(g["center"], w["center"], rtol=0, atol=1e-5)
+                and np.allclose(g["localization_offset"],
+                                w["localization_offset"], rtol=0, atol=1e-4)
+                and np.array_equal(g["audio_offset"], w["audio_offset"])
+                and g["label"] == w["label"]):
+            diffs.append(f"head {k}: {g} vs {w}")
+    return diffs
+
+
+def mesh_phase(fine_mix, fine_shifts, mix) -> dict:
+    """parallel/ on the card: the nccl sweep at world size 1, the two-rank
+    gloo sweep and forward, and the dry run (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from acousticswarms_speech_tpu_torch.parallel import ranks
+    from acousticswarms_speech_tpu_torch.parallel.mesh import launch
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    offsets = list(-fine_shifts[:, 1:].astype(float))
+    out = {}
+
+    def run(label, world, backend, deterministic, forward=None):
+        t0 = time.time()
+        res = launch(ranks.release_mesh_check, world, backend, "cuda",
+                     args=(SPOT_DIR, fine_mix, offsets, deterministic, forward),
+                     timeout_s=MESH_TIMEOUT_S, deadline_s=MESH_DEADLINE_S)
+        wall = time.time() - t0
+        if len({r["checksum"] for r in res}) != 1:
+            raise AssertionError(f"mesh {label}: the ranks' sweeps differ")
+        for r in res:
+            k = r["kernel"]
+            if not k["equal"] or k["max_abs_err"] != 0:
+                raise AssertionError(f"mesh {label} rank {r['rank']}: roll "
+                                     f"kernel != plain at {k['shape']}")
+            if r["launches"] <= 0:
+                raise AssertionError(f"mesh {label} rank {r['rank']}: no roll "
+                                     f"kernel launch")
+            log(f"mesh {label} rank {r['rank']} ({r['backend']}, "
+                f"{r['device']}): sharded sweep {r['sharded_sweep_s']:.3f}s, "
+                f"of which all-gathers {r['gather_s']:.4f}s "
+                f"({100 * r['gather_s'] / r['sharded_sweep_s']:.1f}%); roll "
+                f"kernel launches {r['launches']} ({r['sweep_launches']} in "
+                f"the sweep), largest {k['shape']} equal to plain; spot calls "
+                f"{r['sweep_spot_calls']} in the sweep"
+                + (f", {r['forward_spot_calls']} in the forward "
+                   f"{r['sharded_forward_s']:.3f}s" if forward else "")
+                + f"; peak memory {r['peak_memory_gb']:.2f} GB")
+        log(f"mesh {label}: unsharded sweep on rank 0 "
+            f"{res[0]['unsharded_sweep_s']:.3f}s"
+            + (f", unsharded forward {res[0]['unsharded_forward_s']:.3f}s"
+               if forward else "") + f"; launch wall {wall:.2f}s")
+        exact = _sweep_close(label, res[0]["sweep"])
+        return res, wall, exact
+
+    nccl, out["nccl_wall_s"], out["nccl_bit_equal"] = run("nccl x1", 1, "nccl",
+                                                           True)
+    forward = {"sep_dir": SEP_DIR, "mix": mix, "mic_pos": MIC_POS,
+               "roi": ROI, "cache_dir": CACHE_DIR}
+    gloo, out["gloo_wall_s"], out["gloo_bit_equal"] = run("gloo x2", 2, "gloo",
+                                                          True, forward)
+    want = gloo[0]["unsharded_forward"]
+    for r in gloo:
+        diffs = _same_heads(r["sharded_forward"], want)
+        for d in diffs:
+            log(f"mesh gloo x2 rank {r['rank']}: forward head differs: {d}")
+        if diffs:
+            raise AssertionError(f"mesh rank {r['rank']}: the sharded "
+                                 f"forward's heads differ from the unsharded")
+        a, b = r["sharded_forward"]["audio"], want["audio"]
+        err = float(np.abs(a - b).max())
+        if a.shape != b.shape or not err <= WAVE_TOL * np.abs(b).max():
+            raise AssertionError(f"mesh rank {r['rank']}: audio differs {err}")
+        log(f"mesh gloo x2 rank {r['rank']}: forward {len(want['heads'])} "
+            f"heads equal to the unsharded forward's; audio max abs diff "
+            f"{err:.3e} (peak {np.abs(b).max():.4f})")
+    t0 = time.time()
+    dry = subprocess.run(
+        [sys.executable, "-m", "acousticswarms_speech_tpu_torch.parallel.dryrun",
+         "--n_devices", "2", "--device", "cuda", "--backend", "gloo"],
+        cwd=REPO, capture_output=True, text=True, timeout=MESH_DEADLINE_S,
+        stdin=subprocess.DEVNULL)
+    out["dryrun_s"] = time.time() - t0
+    if dry.returncode != 0:
+        raise AssertionError(f"dry run exited {dry.returncode}:\n"
+                             f"{dry.stdout}\n{dry.stderr}")
+    log(f"mesh dry run in {out['dryrun_s']:.2f}s: {dry.stdout.strip()}")
+    out["launches"] = {"mesh_nccl_rank0": nccl[0]["launches"],
+                       **{f"mesh_rank{r['rank']}": r["launches"] for r in gloo}}
+    out["kernel_max_abs_err"] = max(r["kernel"]["max_abs_err"]
+                                    for r in nccl + gloo)
+    for label, res in (("nccl", nccl), ("gloo", gloo)):
+        out[label] = [{k: r[k] for k in (
+            "rank", "sharded_sweep_s", "gather_s", "launches",
+            "sweep_launches", "sweep_spot_calls", "peak_memory_gb")}
+            for r in res]
+        out[label][0]["unsharded_sweep_s"] = res[0]["unsharded_sweep_s"]
+    for r, summary in zip(gloo, out["gloo"]):
+        summary["forward_spot_calls"] = r["forward_spot_calls"]
+        summary["sharded_forward_s"] = r["sharded_forward_s"]
+    out["gloo"][0]["unsharded_forward_s"] = gloo[0]["unsharded_forward_s"]
+    return out
+
+
 def counted(name: str, phase, *args):
     """Run a phase with the roll kernel's launch count set to 0 just before
     and read just after; these paths never roll, so it must stay 0."""
@@ -1179,7 +1340,9 @@ def main() -> int:
         pipe, mix, shapes, launches, summary = main_path_phase()
         kernel_row = reference_phase(pipe, mix, shapes, launches)
         log(f"main path summary {json.dumps(summary)}")
-        del pipe
+        fine_mix, fine_shifts = (t.cpu().numpy() for t in max(
+            shapes, key=lambda r: r[1].shape[0] * r[0].shape[1]))
+        del pipe, shapes
         t0 = time.time()
         evaluation = eval_phase()
         log(f"evaluation phase {time.time() - t0:.2f}s: "
@@ -1201,6 +1364,9 @@ def main() -> int:
         new_paths = {"generation": generation, "mining": mining,
                      "baselines": baselines, "loader": loader}
         log(f"new paths: {json.dumps(new_paths)}")
+        t0 = time.time()
+        mesh = mesh_phase(fine_mix, fine_shifts, mix)
+        log(f"mesh phase {time.time() - t0:.2f}s: {json.dumps(mesh)}")
         kernel_row["launches_by_path"] = {
             "joint_forward": launches,
             "evaluate_serial": evaluation["roll_launches_serial"],
@@ -1211,7 +1377,10 @@ def main() -> int:
             "generation": gen_launches,
             "mining": mine_launches,
             "baselines": base_launches,
+            **mesh["launches"],
         }
+        kernel_row["max_abs_err"] = max(kernel_row["max_abs_err"],
+                                        mesh["kernel_max_abs_err"])
         kernel_row["eval_largest_launch"] = evaluation["largest_launch"]
     except BaseException:
         traceback.print_exc()

@@ -1,6 +1,7 @@
 """The port's device code without a hand-written kernel (the room render and
 convolution, the MUSIC and TOPS maps) on the card against the same code on
-the CPU, at small sizes.
+the CPU, at small sizes; and the candidate-sharded sweep on the card (two
+gloo ranks sharing it, and nccl at world size 1) against the unsharded one.
 
 Every test here carries the `gpu` marker and skips without a CUDA device
 (decided inside a fixture).  This file imports neither JAX nor the JAX
@@ -25,6 +26,10 @@ from acousticswarms_speech_tpu_torch.data import roomsim  # noqa: E402
 from acousticswarms_speech_tpu_torch.dsp import music, tops  # noqa: E402
 from acousticswarms_speech_tpu_torch.dsp.geometry import \
     build_geometry  # noqa: E402
+from acousticswarms_speech_tpu_torch.parallel import ranks  # noqa: E402
+from acousticswarms_speech_tpu_torch.parallel.mesh import launch  # noqa: E402
+from acousticswarms_speech_tpu_torch.search.spotform import \
+    DelayAndSumExecutor  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -84,3 +89,28 @@ def test_music_and_tops_card_match_cpu(cuda):
         got = fn(mix, geom, FREQ_BINS, N_FFT, device=cuda)
         assert got.shape == want.shape == (geom.num_clusters,)
         assert np.abs(got - want).max() <= 1e-8 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_sharded_sweep_on_the_card_matches_unsharded(cuda, backend, world):
+    """37 candidates at T = 72000 through the roll kernel, delay-and-sum (no
+    cuDNN, so the rows are computed alike in any batch): every rank's
+    sharded sweep equals the unsharded one on the card."""
+    rng = np.random.default_rng(0)
+    mix = rng.normal(size=(7, 72000)).astype(np.float32)
+    cands = [rng.integers(-300, 300, size=6) for _ in range(37)]
+    want = DelayAndSumExecutor(device=cuda).sweep(mix, cands, strict=1,
+                                                  with_similarity=True)
+    rows = want.gather(range(37), quantize=False)
+    got = launch(ranks.sweep, world, backend, "cuda",
+                 args=(None, mix, cands, 1, True), deadline_s=300)
+    assert len(got) == world
+    for res in got:
+        np.testing.assert_allclose(res["powers"], want.powers, rtol=1e-6)
+        np.testing.assert_allclose(res["powers_win"], want.powers_win,
+                                   rtol=1e-6)
+        np.testing.assert_allclose(res["sisdr_mat"], want.sisdr_mat,
+                                   rtol=1e-5, atol=1e-5)
+        for k in range(37):
+            np.testing.assert_allclose(res["waveforms"][k], rows[k],
+                                       rtol=1e-6, atol=1e-7)

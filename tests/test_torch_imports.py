@@ -1,39 +1,28 @@
-"""The modules of the port's third slice import nothing of JAX, flax,
-msgpack or the JAX package: checked in a fresh interpreter, whose
-sys.modules starts free of them (tests/conftest.py imports jax into this
-one)."""
+"""Every module of the port imports nothing of JAX, flax, msgpack or the JAX
+package: checked in a fresh interpreter, whose sys.modules starts free of
+them (tests/conftest.py imports jax into this one)."""
 import os
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NEW_MODULES = [
-    "acousticswarms_speech_tpu_torch.data.roomsim",
-    "acousticswarms_speech_tpu_torch.data.voicegen",
-    "acousticswarms_speech_tpu_torch.data.generate_dataset",
-    "acousticswarms_speech_tpu_torch.data.vctk_split",
-    "acousticswarms_speech_tpu_torch.data.generate_srp_sample",
-    "acousticswarms_speech_tpu_torch.data.mine_range",
-    "acousticswarms_speech_tpu_torch.dsp.music",
-    "acousticswarms_speech_tpu_torch.dsp.tops",
-    "acousticswarms_speech_tpu_torch.utils.oracle_masks",
-    "acousticswarms_speech_tpu_torch.models.convert",
-    "acousticswarms_speech_tpu_torch.runtime.native",
-    "acousticswarms_speech_tpu_torch.pipeline.monitor",
-    "acousticswarms_speech_tpu_torch.pipeline.mic_array",
-    "acousticswarms_speech_tpu_torch.training.datasets",
-]
+PACKAGE = "acousticswarms_speech_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "acousticswarms_speech_tpu")
 
 
 def test_new_modules_import_no_jax():
+    """Every module that pkgutil.walk_packages finds in the port."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, pkgutil, sys\n"
         f"forbidden = {FORBIDDEN!r}\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in forbidden]\n"
-        f"for name in {NEW_MODULES!r}:\n"
+        f"pkg = importlib.import_module({PACKAGE!r})\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+        "                                               pkg.__name__ + '.')]\n"
+        "for name in names:\n"
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in forbidden)\n"
+        "print('modules:', len(names), sorted(names))\n"
         "print('bad:', bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -41,6 +30,9 @@ def test_new_modules_import_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "bad: []" in proc.stdout
+    for name in ("parallel.mesh", "parallel.ranks", "parallel.dryrun",
+                 "pipeline.joint", "ops.roll_kernel", "training.train"):
+        assert f"'{PACKAGE}.{name}'" in proc.stdout, name
 
 
 def test_chip_smoke_imports_no_jax():

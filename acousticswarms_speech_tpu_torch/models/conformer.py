@@ -18,7 +18,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .modules import glu
+from .modules import LayerNorm, Linear, attention, glu
 
 
 def rel_pos_encoding(T: int, d_model: int) -> np.ndarray:
@@ -46,7 +46,7 @@ class RelPosMHAXL(nn.Module):
         self.linear_pos_weight = nn.Parameter(torch.empty(embed_dim, embed_dim))
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, hd))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, hd))
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.out_proj = Linear(embed_dim, embed_dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
         nn.init.xavier_uniform_(self.linear_pos_weight)
 
@@ -54,33 +54,34 @@ class RelPosMHAXL(nn.Module):
         E, H = self.embed_dim, self.num_heads
         hd = E // H
         B, T, _ = x.shape
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = F.linear(x, self.in_proj_weight) + self.in_proj_bias
         q, k, v = qkv.chunk(3, dim=-1)
         q = q.reshape(B, T, H, hd)
         k = k.reshape(B, T, H, hd).transpose(1, 2)
         v = v.reshape(B, T, H, hd).transpose(1, 2)
 
-        pe = torch.from_numpy(rel_pos_encoding(T, E)).to(x.device, x.dtype)
+        # the table in the weights' dtype; the scores in float32
+        pe = torch.from_numpy(rel_pos_encoding(T, E)).to(
+            x.device, self.linear_pos_weight.dtype)
         r = F.linear(pe, self.linear_pos_weight).reshape(2 * T - 1, H, hd)
         q_u = (q + self.pos_bias_u).transpose(1, 2)  # (B, H, T, hd)
         q_v = (q + self.pos_bias_v).transpose(1, 2)
 
-        ac = torch.matmul(q_u, k.transpose(-1, -2))
-        bd_full = torch.einsum("bhqd,rhd->bhqr", q_v, r)  # (B, H, T, 2T-1)
+        bd_full = torch.einsum("bhqd,rhd->bhqr", q_v.float(),
+                               r.float())  # (B, H, T, 2T-1)
         # bd[..., i, j] = bd_full[..., i, (T-1) - i + j], by the pad-and-
         # reshape skew of Transformer-XL
         bd = F.pad(bd_full, (1, 0)).reshape(B, H, T * 2 * T)[:, :, T:] \
             .reshape(B, H, T, 2 * T - 1)[:, :, :, :T]
-        attn = torch.softmax((ac + bd) / math.sqrt(hd), dim=-1)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, T, E)
+        out = attention(q_u, k, v, scores=bd).transpose(1, 2).reshape(B, T, E)
         return self.out_proj(out)
 
 
 class ConformerFFN(nn.Module):
     def __init__(self, d_model: int, d_ffn: int):
         super().__init__()
-        self.linear1 = nn.Linear(d_model, d_ffn)
-        self.linear2 = nn.Linear(d_ffn, d_model)
+        self.linear1 = Linear(d_model, d_ffn)
+        self.linear2 = Linear(d_ffn, d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear2(F.silu(self.linear1(x)))
@@ -93,7 +94,7 @@ class ConformerConvModule(nn.Module):
         self.depthwise = nn.Conv1d(d_model, d_model, kernel_size,
                                    padding=(kernel_size - 1) // 2,
                                    groups=d_model)
-        self.norm = nn.LayerNorm(d_model)
+        self.norm = LayerNorm(d_model)
         self.pointwise2 = nn.Conv1d(d_model, d_model, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -111,16 +112,16 @@ class ConformerLayer(nn.Module):
     def __init__(self, d_model: int, d_ffn: int, num_heads: int,
                  kernel_size: int, encoder_norm: bool = True):
         super().__init__()
-        self.norm_ffn1 = nn.LayerNorm(d_model)
+        self.norm_ffn1 = LayerNorm(d_model)
         self.ffn1 = ConformerFFN(d_model, d_ffn)
-        self.norm_mhsa = nn.LayerNorm(d_model)
+        self.norm_mhsa = LayerNorm(d_model)
         self.mhsa = RelPosMHAXL(d_model, num_heads)
-        self.norm_conv = nn.LayerNorm(d_model)
+        self.norm_conv = LayerNorm(d_model)
         self.conv = ConformerConvModule(d_model, kernel_size)
-        self.norm_ffn2 = nn.LayerNorm(d_model)
+        self.norm_ffn2 = LayerNorm(d_model)
         self.ffn2 = ConformerFFN(d_model, d_ffn)
-        self.norm_final = nn.LayerNorm(d_model)
-        self.norm_enc = nn.LayerNorm(d_model, eps=1e-6) if encoder_norm else None
+        self.norm_final = LayerNorm(d_model)
+        self.norm_enc = LayerNorm(d_model, eps=1e-6) if encoder_norm else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + 0.5 * self.ffn1(self.norm_ffn1(x))

@@ -6,6 +6,8 @@ All blocks take channel-first (B, C, T) activations.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -33,6 +35,93 @@ def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     return a * torch.sigmoid(b)
 
 
+class Linear(nn.Linear):
+    """nn.Linear that adds its bias to the rounded product, as the JAX
+    package's Dense (`x @ w.T + b`) does in bfloat16.  The product and the
+    bias add are two roundings there, and nn.Linear's fused one differs
+    by an ulp, which attention scores amplify."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight) + self.bias
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm with its statistics and affine step in float32 and the
+    result cast back to the input's dtype, as the JAX package computes it
+    (its bfloat16 configuration)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape,
+                            self.weight.float(), self.bias.float(),
+                            self.eps).to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """nn.GroupNorm with its statistics and affine step in float32 and the
+    result cast back to the input's dtype, as the JAX package computes it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps).to(x.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scores: torch.Tensor | None = None,
+              key_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d) [+ scores]) v over (B, H, T, d) heads, as the
+    JAX package computes it in any dtype: the scores, the mask and the
+    softmax in float32, the probabilities cast to v's dtype.  `scores` is
+    an extra (B, H, T, T) float32 term added before the scale; `key_mask`
+    (B, T) bool, False keys excluded."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if scores is not None:
+        s = s + scores
+    s = s / math.sqrt(q.shape[-1])
+    if key_mask is not None:
+        s = s.masked_fill(~key_mask[:, None, None, :], -1e30)
+    return torch.matmul(torch.softmax(s, dim=-1).to(v.dtype), v)
+
+
+class MultiheadAttention(nn.Module):
+    """Self-attention with nn.MultiheadAttention's parameters
+    (in_proj_weight (3E, E), in_proj_bias, out_proj) on (B, T, E)."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dim, embed_dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dim))
+        self.out_proj = Linear(embed_dim, embed_dim)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, x: torch.Tensor, key_mask=None) -> torch.Tensor:
+        B, T, E = x.shape
+        H = self.num_heads
+        qkv = F.linear(x, self.in_proj_weight) + self.in_proj_bias
+        q, k, v = (t.reshape(B, T, H, E // H).transpose(1, 2)
+                   for t in qkv.chunk(3, dim=-1))
+        out = attention(q, k, v, key_mask=key_mask)
+        return self.out_proj(out.transpose(1, 2).reshape(B, T, E))
+
+
+class TransformerEncoderLayer(nn.Module):
+    """The JAX TransformerEncoderLayer: post-norm, ReLU, no dropout, with
+    nn.TransformerEncoderLayer's parameter names."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int):
+        super().__init__()
+        self.self_attn = MultiheadAttention(d_model, nhead)
+        self.linear1 = Linear(d_model, dim_feedforward)
+        self.linear2 = Linear(dim_feedforward, d_model)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+
+    def forward(self, x: torch.Tensor, key_mask=None) -> torch.Tensor:
+        """x (B, T, E); `key_mask` (B, T) bool, False keys excluded."""
+        x = self.norm1(x + self.self_attn(x, key_mask))
+        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+
+
 class TransformerEncoder(nn.Module):
     """Stack of post-norm ReLU encoder layers on (B, T, E)."""
 
@@ -41,21 +130,13 @@ class TransformerEncoder(nn.Module):
         super().__init__()
         self.num_layers = num_layers
         for i in range(num_layers):
-            setattr(self, f"layers_{i}", transformer_layer(
+            setattr(self, f"layers_{i}", TransformerEncoderLayer(
                 d_model, nhead, dim_feedforward))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.num_layers):
             x = getattr(self, f"layers_{i}")(x)
         return x
-
-
-def transformer_layer(d_model: int, nhead: int,
-                      dim_feedforward: int) -> nn.TransformerEncoderLayer:
-    """The JAX TransformerEncoderLayer: post-norm, ReLU, no dropout."""
-    return nn.TransformerEncoderLayer(
-        d_model, nhead, dim_feedforward, dropout=0.0, activation="relu",
-        batch_first=True, norm_first=False)
 
 
 class DilatedResidualLayer(nn.Module):
@@ -103,7 +184,7 @@ class EncoderBlock(nn.Module):
                        else None)
         self.conv1 = nn.Conv1d(in_channels, 2 * out_channels, kernel_size,
                                stride=stride, padding=kernel_size // 2)
-        self.norm1 = nn.GroupNorm(2, 2 * out_channels)
+        self.norm1 = GroupNorm(2, 2 * out_channels)
 
     def forward(self, x: torch.Tensor, window_embedding=None) -> torch.Tensor:
         x = self.res(x)
@@ -125,7 +206,7 @@ class DecoderBlock(nn.Module):
                                                 stride, stride=stride)
         self.embed1 = (nn.Conv1d(2, 2 * out_channels, 1)
                        if use_window_embedding else None)
-        self.norm1 = nn.GroupNorm(2, 2 * out_channels)
+        self.norm1 = GroupNorm(2, 2 * out_channels)
         self.res = DilatedResidualSequence(out_channels, kernel_size,
                                            residual_layers,
                                            residual_dilation_factor)

@@ -21,9 +21,9 @@ from .conformer import ConformerLayer
 from .modules import (
     DecoderBlock,
     EncoderBlock,
+    TransformerEncoderLayer,
     decoder_channel_plan,
     encoder_channel_plan,
-    transformer_layer,
 )
 
 
@@ -59,7 +59,7 @@ class SepNet(nn.Module):
         for l in range(bottleneck_layers):
             setattr(self, f"bottleneck_{l}_intra", ConformerLayer(
                 C, ffw_dim, num_head, bottleneck_ksize))
-            setattr(self, f"bottleneck_{l}_inter", transformer_layer(
+            setattr(self, f"bottleneck_{l}_inter", TransformerEncoderLayer(
                 C, num_head, ffw_dim))
         dec_plan = decoder_channel_plan(channels, channels, growth, depth)
         for i, (c_in, c_out) in enumerate(dec_plan):
@@ -97,7 +97,7 @@ class SepNet(nn.Module):
             skips.append(x)
 
         C, Tb = x.shape[1], x.shape[2]
-        pad_mask = ~spk_valid.repeat_interleave(Tb, dim=0)  # (B*Tb, S)
+        key_mask = spk_valid.repeat_interleave(Tb, dim=0)  # (B*Tb, S)
         for l in range(self.bottleneck_layers):
             # intra: a Conformer over time for each speaker
             x = run_block(self.remat, getattr(self, f"bottleneck_{l}_intra"),
@@ -105,7 +105,7 @@ class SepNet(nn.Module):
             # inter: attention across the speaker axis at each time step
             y = x.reshape(B, S, C, Tb).permute(0, 3, 1, 2).reshape(B * Tb, S, C)
             y = run_block(self.remat, getattr(self, f"bottleneck_{l}_inter"),
-                          y, src_key_padding_mask=pad_mask)
+                          y, key_mask=key_mask)
             x = y.reshape(B, Tb, S, C).permute(0, 2, 3, 1).reshape(B * S, C, Tb)
 
         for i in range(self.depth):

@@ -5,10 +5,13 @@ Localize by separation (SRP pruning -> coarse spotform -> fine spotform ->
 NMS), then separate by localization (one SepNet forward over the final
 speakers' TDoAs).  Stage wall times are kept in `self.times[0..4]` in the
 reference's order (SRP, coarse, fine, clustering, separation); the search
-geometry is set up once per microphone configuration.
+geometry is set up once per microphone configuration.  Each stage is also a
+`torch.profiler.record_function` span named after its `stage_metrics()`
+key, which `forward(mix, profile_dir=...)` writes into a trace.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
@@ -19,16 +22,25 @@ from ..constants import FS
 from ..device import resolve_device
 from ..models.weights import load_release
 from ..search.spotform import (SeparationInference, SpotformExecutor,
-                               SweepLane, to_numpy)
+                               SweepLane, _BatchedSweep, to_numpy)
 from .mic_array import MicArray
+
+# stage_metrics() keys of self.times[0..4], also the profiler spans' names
+STAGES = ("time_srp_s", "time_coarse_spotform_s", "time_fine_spotform_s",
+          "time_clustering_s", "time_separation_s")
 
 
 class JointPipeline:
-    def __init__(self, spot_model: torch.nn.Module, sep_model: torch.nn.Module,
-                 device=None, use_bf16: bool = False,
+    def __init__(self, spot_model: torch.nn.Module | _BatchedSweep,
+                 sep_model: torch.nn.Module | None, device=None,
+                 use_bf16: bool = False,
                  sweep_crop_seconds: float | None = None, mesh=None):
-        """`spot_model`: a SpotNet, `sep_model`: a SepNet, both with their
-        weights.  `device` defaults to cuda.
+        """`spot_model`: a SpotNet with its weights, or a sweep executor of
+        search/spotform.py (e.g. DelayAndSumExecutor, which needs no
+        weights) on the pipeline's device.  `sep_model`: a SepNet with its
+        weights, or None for a pipeline that only localizes (its
+        separation raises).  `device` defaults to cuda.  `use_bf16` runs
+        both networks in bfloat16, as the JAX package's does.
 
         `mesh` (parallel/mesh.py): the coarse, fine and head sweeps shard
         their candidates over its `cand` ranks (search/spotform.py), and
@@ -46,10 +58,18 @@ class JointPipeline:
         self.mesh = mesh
         # the pipeline's own view of the executor, which counts its spot
         # calls (lanes of pipeline/throughput.py share the executor)
-        self.spot_model = SweepLane(SpotformExecutor(
-            spot_model, use_bf16=use_bf16, device=self.device, mesh=mesh))
-        self.sep_model = SeparationInference(sep_model, use_bf16=use_bf16,
-                                             device=self.device)
+        if isinstance(spot_model, _BatchedSweep):
+            if spot_model.device != self.device:
+                raise ValueError(f"the sweep executor runs on "
+                                 f"{spot_model.device}, the pipeline on "
+                                 f"{self.device}")
+            executor = spot_model
+        else:
+            executor = SpotformExecutor(spot_model, use_bf16=use_bf16,
+                                        device=self.device, mesh=mesh)
+        self.spot_model = SweepLane(executor)
+        self.sep_model = (None if sep_model is None else SeparationInference(
+            sep_model, use_bf16=use_bf16, device=self.device))
         env_crop = os.environ.get("SPOT_CROP_SECONDS")
         self.sweep_crop_seconds = (
             float(env_crop) if env_crop is not None
@@ -93,10 +113,24 @@ class JointPipeline:
                                       device=self.device)
         self.previous_config = current_config
 
-    def forward(self, mix_data):
+    def forward(self, mix_data, profile_dir: str | None = None):
         """mix_data: (M, T).  Returns (patches, audio_loc, audio, srp_drop,
-        stage1_drop, spot_times)."""
-        return self._forward(mix_data)
+        stage1_drop, spot_times).
+
+        `profile_dir`: trace the whole forward with `torch.profiler` (host
+        activity, and the card's kernels when the pipeline runs on one)
+        and write it there as a Chrome trace (`*.pt.trace.json`), with one
+        span per stage named after its `stage_metrics()` key."""
+        if profile_dir is None:
+            return self._forward(mix_data)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(
+                activities=activities,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    profile_dir)):
+            return self._forward(mix_data)
 
     __call__ = forward
 
@@ -127,20 +161,21 @@ class JointPipeline:
         self.times = [0.0] * 5
         patches, audio_loc, srp_drop, stage1_drop, spot_times = \
             self.localize_by_separation(mix, mix_sweep=mix_sweep)
-        t0 = time.time()
-        audio = self.separate_by_localization(mix, patches)
-        self.times[4] = time.time() - t0
+        with self._stage(4):
+            audio = self.separate_by_localization(mix, patches)
         return patches, audio_loc, audio, srp_drop, stage1_drop, spot_times
 
+    @contextlib.contextmanager
+    def _stage(self, i: int):
+        """Times stage `i` into self.times[i], inside a profiler span."""
+        t0 = time.time()
+        with torch.profiler.record_function(STAGES[i]):
+            yield
+        self.times[i] = time.time() - t0
+
     def stage_metrics(self) -> dict:
-        return {
-            "time_srp_s": self.times[0],
-            "time_coarse_spotform_s": self.times[1],
-            "time_fine_spotform_s": self.times[2],
-            "time_clustering_s": self.times[3],
-            "time_separation_s": self.times[4],
-            "spotform_calls": self.spot_model.calls,
-        }
+        return {**dict(zip(STAGES, self.times)),
+                "spotform_calls": self.spot_model.calls}
 
     def localize_by_separation(self, mix_data, mix_sweep=None):
         """`mix_sweep`: optional cropped copy of `mix_data` for the selection
@@ -149,35 +184,41 @@ class JointPipeline:
         assert self.previous_config is not None, \
             "Mic positions and speaker range not provided; call .setup() first"
 
-        t0 = time.time()
-        patch_list, _ = self.mic_processor.apply_srp_phat(mix_data)
-        self.times[0] = time.time() - t0
+        with self._stage(0):
+            patch_list, _ = self.mic_processor.apply_srp_phat(mix_data)
         if len(patch_list) <= 0:
             return [], [], 0, 0, 0
 
         sweep_mix = mix_sweep if mix_sweep is not None else mix_data
-        t0 = time.time()
-        # The JAX package subdivides candidates on the host while its device
-        # runs this sweep; its outputs do not depend on that, and here each
-        # survivor is subdivided on demand in stage 2.
-        patch_list = self.mic_processor.spotform_big_patch(
-            sweep_mix, patch_list, self.spot_model)
-        self.times[1] = time.time() - t0
+        with self._stage(1):
+            # Queue the coarse sweep, then subdivide candidates on the host
+            # while the device works, until the sweep is done: the
+            # survivors not reached yet are subdivided in stage 2.  The
+            # outputs do not depend on how many were reached (subdivision
+            # is a pure host function), so ranks of a mesh may reach
+            # different numbers.
+            processor = self.mic_processor
+            coarse = self.spot_model.sweep(sweep_mix, patch_list, strict=0)
+            subdivided = {}
+            for p in patch_list:
+                if coarse.is_ready():
+                    break
+                subdivided[id(p)] = processor.subdivide_patch(p)
+            patch_list = processor.spotform_big_patch(
+                sweep_mix, patch_list, self.spot_model, sweep=coarse)
         if len(patch_list) <= 0:
             return [], [], 0, 0, 0
 
-        t0 = time.time()
-        output_pair = self.mic_processor.spotform_small_patch_parallel(
-            sweep_mix, patch_list, self.spot_model,
-            full_mix=mix_data if mix_sweep is not None else None)
-        self.times[2] = time.time() - t0
+        with self._stage(2):
+            output_pair = processor.spotform_small_patch_parallel(
+                sweep_mix, patch_list, self.spot_model, subdivided=subdivided,
+                full_mix=mix_data if mix_sweep is not None else None)
         if len(output_pair) <= 0:
             return [], [], 0, 0, 0
 
-        t0 = time.time()
-        audio_final, patch_final, spot_times, _ = \
-            self.mic_processor.clustering_new(output_pair)
-        self.times[3] = time.time() - t0
+        with self._stage(3):
+            audio_final, patch_final, spot_times, _ = \
+                processor.clustering_new(output_pair)
         if len(patch_final) <= 0:
             return [], [], 0, 0, 0
         return patch_final, np.array(audio_final), 0, 0, spot_times
@@ -185,7 +226,20 @@ class JointPipeline:
     def separate_by_localization(self, mix_data, target_patches):
         if len(target_patches) == 0:
             return None
-        return self.sep_model.infer(mix_data, [p[0] for p in target_patches])
+        return self._separation().infer(mix_data,
+                                        [p[0] for p in target_patches])
+
+    def separate_by_localization_by_sample(self, mix_data, sample_lists):
+        """SepNet at the given TDoA offset vectors ((M-1,) each) instead of
+        the heads' patches."""
+        if len(sample_lists) == 0:
+            return None
+        return self._separation().infer_sample(mix_data, sample_lists)
+
+    def _separation(self) -> SeparationInference:
+        if self.sep_model is None:
+            raise ValueError("this pipeline has no separation network")
+        return self.sep_model
 
     def forward_streaming(self, mix_data: np.ndarray, chunk_samples: int,
                           merge_dist: float = 0.45, overlap: int = 0,

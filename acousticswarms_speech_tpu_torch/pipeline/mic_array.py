@@ -102,27 +102,35 @@ class MicArray:
         return patch_list, simple_pos
 
     # ----- stage 1 -------------------------------------------------------
-    def spotform_big_patch(self, mix_data: np.ndarray, patch_list, spot_model):
-        """Coarse spotforming filter (reference: Mic_Array.py:196-222)."""
+    def spotform_big_patch(self, mix_data: np.ndarray, patch_list, spot_model,
+                           sweep=None):
+        """Coarse spotforming filter (reference: Mic_Array.py:196-222).
+        `sweep` may carry the coarse sweep of `patch_list`, already queued,
+        so that host work can run beside the device."""
         self.big_spotforming_times = len(patch_list)
         candidate_finished, powers_with_dis, relative_threshold = \
             binary_search_baseline(mix_data, spot_model, patch_list,
-                                   self.mic_positions)
+                                   self.mic_positions, sweep=sweep)
         self.relative_threshold = relative_threshold
         return candidate_finished
 
     def subdivide_patch(self, patch) -> list[Patch]:
-        """Width-4 -> width-2 subdivision of one candidate (host-side)."""
+        """Width-4 -> width-2 subdivision of one candidate (host-side; can
+        run while a device sweep is in flight)."""
         return search_area([patch], self.mic_positions,
                            self.upper_bound_pairwise)
 
     # ----- stage 2 -------------------------------------------------------
     def spotform_small_patch_parallel(self, mix_data: np.ndarray,
                                       candidate_finished, spot_model,
-                                      sample_gt=None, full_mix=None):
+                                      sample_gt=None, subdivided=None,
+                                      full_mix=None):
         """Subdivide every big patch, run ONE combined strict spotforming
         sweep, then per-big-patch threshold + SI-SDR clustering
         (reference: Mic_Array.py:225-395).
+
+        `subdivided`: optional dict id(patch) -> its subdivision, computed
+        beside the coarse sweep; the other patches are subdivided here.
 
         `full_mix`: when the selection sweep ran on a cropped mixture
         (JointPipeline.sweep_crop_seconds), the full-length mixture — the
@@ -152,7 +160,11 @@ class MicArray:
 
         # 2.1: subdivide and collect all small patches across big patches
         for i in range(len(candidate_finished)):
-            patch_processed = self.subdivide_patch(candidate_finished[i])
+            key = id(candidate_finished[i])
+            if subdivided is not None and key in subdivided:
+                patch_processed = list(subdivided[key])
+            else:
+                patch_processed = self.subdivide_patch(candidate_finished[i])
             init_area_total.append(candidate_finished[i].area_points)
 
             patch_center0 = Patch(candidate_finished[i].sample_offset,

@@ -48,6 +48,16 @@ def _as_device_mix(x, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device).contiguous()
 
 
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A small host array on `device`.  To a card it goes from pinned
+    memory without blocking the host: a copy from pageable memory would
+    wait for all the work queued on the stream before it."""
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def _quantize_rows(x: torch.Tensor):
     """Per-row int16 quantization: (int16 rows, float32 scales)."""
     scale = torch.clamp(torch.amax(torch.abs(x), dim=1), min=1e-12) / 32767.0
@@ -64,17 +74,25 @@ def _shift_matrix(patch_list, num_mic: int) -> np.ndarray:
 
 
 class SweepResult:
-    """Device-resident sweep outputs.  The first access to `powers`,
-    `powers_win` or `sisdr_mat` copies all the scalars to the host at once."""
+    """Device-resident sweep outputs.  Constructing one only queues the
+    device work, so the host can work beside it (`is_ready` polls it); the
+    first access to `powers`, `powers_win` or `sisdr_mat` copies all the
+    scalars to the host at once."""
 
     def __init__(self, out: torch.Tensor, n: int, totals: torch.Tensor,
-                 wins: torch.Tensor, sim: torch.Tensor | None = None):
+                 wins: torch.Tensor, sim: torch.Tensor | None = None,
+                 done: torch.cuda.Event | None = None):
         self._out = out      # (n, T)
         self.n = n
         self._totals = totals
         self._wins = wins
         self._sim = sim      # (n, n) or None
+        self._done = done    # recorded after the sweep's last kernel
         self._fetched = None
+
+    def is_ready(self) -> bool:
+        """Whether the device has finished the sweep (always on the CPU)."""
+        return self._done is None or self._done.query()
 
     def _fetch(self) -> np.ndarray:
         if self._fetched is None:
@@ -131,7 +149,7 @@ class _BatchedSweep:
 
     def _run(self, mix, shifts: np.ndarray, onehot):
         """Roll and run the candidates of `shifts` (B, M), chunk by chunk."""
-        shifts = torch.as_tensor(shifts, device=self.device)
+        shifts = _upload(shifts, self.device)
         rolled = roll_channels_batch(mix, shifts)  # (B, M, T)
         parts = [self._chunk_fn(rolled[i : i + self.chunk], onehot)
                  for i in range(0, len(shifts), self.chunk)]
@@ -157,18 +175,26 @@ class _BatchedSweep:
     @torch.no_grad()
     def sweep(self, input_channels, patch_list, strict: int = 0,
               with_similarity: bool = False) -> SweepResult:
+        """Queue the sweep of `patch_list` on the device and return its
+        result without waiting for it.  The host waits only before the
+        first kernel (the mesh's candidate check; with gloo, the
+        all-gathers through the host)."""
         n = len(patch_list)
         mix = _as_device_mix(input_channels, self.device)
         shifts = _shift_matrix(patch_list, mix.shape[0])
-        onehot = torch.tensor([1.0, 0.0] if strict == 1 else [0.0, 1.0],
-                              device=self.device)
+        onehot = _upload(np.array([1.0, 0.0] if strict == 1 else [0.0, 1.0],
+                                  np.float32), self.device)
         if self.mesh is None:
             out, totals, wins = self._run(mix, shifts, onehot)
         else:
             out, totals, wins = self._run_sharded(
                 mix, shifts, onehot, (strict, int(with_similarity)))
         sim = sisdr_matrix(out) if with_similarity else None
-        return SweepResult(out, n, totals, wins, sim)
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return SweepResult(out, n, totals, wins, sim, done)
 
 
 class SweepLane:

@@ -16,10 +16,20 @@ Phases, each printed with the seconds since start:
   main path    JointPipeline.forward of the port on the 3 s, 7-mic bench
                scene (.bench_fixture_v2.npz) with both release networks at
                full width in float32: a warm-up forward, then a timed one
-               with the kernel's launch count reset just before it;
+               with the kernel's launch count reset just before it, and
+               the count of candidates subdivided beside the coarse sweep;
   reference    the card's SRP map, SpotNet and SepNet outputs against the
                same port code on the CPU, on the bench scene or a slice of it,
                and the roll kernel at every shape the main path gave it;
+  profile      one more forward with profile_dir (torch.profiler, host and
+               card): device busy time and idle share, the top device ops,
+               each stage span's time; the trace's roll kernels must number
+               the kernel counter's launches;
+  bf16         (a) SpotNet on 8 candidates of the fine sweep's rolled
+               inputs and SepNet at the bench scene's heads, in bfloat16
+               on the card and on the CPU; (b) the bench-scene forward with
+               use_bf16=True, warm-up then timed, its heads beside the
+               float32 ones;
   evaluation   JointPipeline.from_experiments of both release experiments,
                evaluate_dataset over the 16 dev scenes (.devdata_v2/test):
                serially with cuDNN's default algorithms (as the evaluate
@@ -30,11 +40,19 @@ Phases, each printed with the seconds since start:
                held against its plain version on the inputs of every
                launch of the first pass, and SepNet at each scene's true
                TDoAs gives the oracle-position SI-SDRi;
+  bf16 eval    scripts/precompute_geometry.py writes the geometry caches
+               into a copy of the dev set (each checked against a fresh
+               build), then evaluate_dataset in bfloat16, serially, reads
+               them (--cached_init); P/R/F1 and SI-SDRi beside float32's;
   training     train() of each release description at full width for one
                epoch of 3 steps on the dev scenes, warm-started from the
                release weights; losses finite, and the written checkpoint
                reads back through load_model_from_exp equal to the trained
                parameters;
+  tools        export_release of both trained experiments, read back
+               through JointPipeline.from_release (the float16 rounding of
+               the trained parameters); seed_checkpoint_from_release into a
+               fresh experiment, from which train() resumes for one step;
   generation   a seeded voice bank, then two scenes (7 mics, 3 talkers,
                3 s; max_order 10 and --sample_rt60) with the room rendered
                on the card and again on the CPU: premix within 1e-6 of its
@@ -63,9 +81,10 @@ Phases, each printed with the seconds since start:
                (parallel/dryrun.py) on two gloo ranks.  Each rank counts its
                roll kernel launches over its sharded work and holds the
                kernel against its plain version on its largest launch.
-The roll kernel's launch count is set to 0 before the training,
-generation, mining and baselines phases and read after each; the run fails
-unless each is 0.  The mesh phase's ranks count theirs (mesh_rank0,
+The roll kernel is held against its plain version on the inputs of every
+launch of the profiled forward, the bf16 forward and the bf16 evaluation.
+Its launch count is set to 0 before the training, tools, generation, mining
+and baselines phases and read after each; the run fails unless each is 0.  The mesh phase's ranks count theirs (mesh_rank0,
 mesh_rank1); the run fails unless each is above 0.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
@@ -75,7 +94,9 @@ hangs.  The script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import faulthandler
+import glob
 import json
 import math
 import os
@@ -141,6 +162,45 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+@contextlib.contextmanager
+def recording_rolls():
+    """Yields a list that receives (mix, shifts) copies of every roll of
+    the sweeps and separation while the block runs, without changing what
+    they compute."""
+    from acousticswarms_speech_tpu_torch.ops import shift as shift_ops
+    from acousticswarms_speech_tpu_torch.search import spotform
+
+    rolls = []
+    real = shift_ops.roll_channels_batch
+
+    def recording(m, s):
+        rolls.append((m.clone(), s.clone()))
+        return real(m, s)
+
+    spotform.roll_channels_batch = shift_ops.roll_channels_batch = recording
+    try:
+        yield rolls
+    finally:
+        spotform.roll_channels_batch = shift_ops.roll_channels_batch = real
+
+
+def hold_rolls(rolls, label: str) -> None:
+    """The roll kernel against its plain version on the inputs of every
+    recorded launch: exact equality, or the run fails."""
+    import torch
+
+    from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
+        roll_channels_batch_cuda
+    from acousticswarms_speech_tpu_torch.ops.shift import \
+        roll_channels_batch_plain
+
+    for m, s in rolls:
+        got = roll_channels_batch_cuda(m, s)
+        if not torch.equal(got, roll_channels_batch_plain(m, s)):
+            raise AssertionError(f"{label}: roll kernel != plain at "
+                                 f"{tuple(s.shape) + (m.shape[1],)}")
 
 
 def device_phase() -> dict:
@@ -257,11 +317,9 @@ def main_path_phase():
     import torch
 
     from acousticswarms_speech_tpu_torch.models import load_release
-    from acousticswarms_speech_tpu_torch.ops import shift as shift_ops
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
-    from acousticswarms_speech_tpu_torch.search import spotform
 
     mix = np.load(FIXTURE)["mix"].astype(np.float32)[:, :MIX_SAMPLES]
     log(f"fixture: mix {mix.shape}")
@@ -283,33 +341,51 @@ def main_path_phase():
     sync()
     log(f"warm-up forward {time.time() - t0:.2f}s")
 
-    # Record the roll shapes of the timed forward without changing its path.
-    shapes = []
-    real_roll = shift_ops.roll_channels_batch
+    # Count the candidates subdivided beside the coarse sweep: those the
+    # processor subdivides before the coarse result is read.
+    proc = pipe.mic_processor
+    overlap = {"subdivided": 0, "subdivide_s": 0.0}
 
-    def recording_roll(m, s):
-        shapes.append((m.clone(), s.clone()))
-        return real_roll(m, s)
+    def subdivide(patch):
+        overlap["subdivided"] += 1
+        t0 = time.time()
+        try:
+            return type(proc).subdivide_patch(proc, patch)
+        finally:
+            overlap["subdivide_s"] += time.time() - t0
 
-    spotform.roll_channels_batch = recording_roll
-    shift_ops.roll_channels_batch = recording_roll
+    def big_patch(mix_data, patch_list, *args, **kwargs):
+        overlap["beside_coarse"] = overlap["subdivided"]
+        overlap["candidates"] = len(patch_list)
+        return type(proc).spotform_big_patch(proc, mix_data, patch_list,
+                                             *args, **kwargs)
+
+    proc.subdivide_patch, proc.spotform_big_patch = subdivide, big_patch
     pipe.spot_model.calls = 0
-    roll_channels_batch_cuda.launches = 0
-    sync()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    patches, audio_loc, audio, _, _, spot_times = pipe.forward(mix)
-    sync()
-    wall = time.time() - t0
-    launches = roll_channels_batch_cuda.launches
-    spotform.roll_channels_batch = real_roll
-    shift_ops.roll_channels_batch = real_roll
+    try:
+        # the roll inputs of the timed forward, recorded
+        with recording_rolls() as shapes:
+            roll_channels_batch_cuda.launches = 0
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            patches, audio_loc, audio, _, _, spot_times = pipe.forward(mix)
+            sync()
+            wall = time.time() - t0
+            launches = roll_channels_batch_cuda.launches
+    finally:
+        del proc.subdivide_patch, proc.spotform_big_patch
 
     metrics = pipe.stage_metrics()
     log(f"timed forward {wall:.3f}s; stage_metrics "
         f"{json.dumps(metrics)}; spot_times {spot_times}")
     log(f"roll kernel launches in the timed forward: {launches} at "
         f"(B, M, T) {[tuple(s.shape) + (m.shape[1],) for m, s in shapes]}")
+    log(f"coarse stage {metrics['time_coarse_spotform_s']:.4f}s: "
+        f"{overlap['beside_coarse']} of {overlap['candidates']} candidates "
+        f"subdivided beside the coarse sweep; {overlap['subdivided']} "
+        f"subdivisions in the forward, {overlap['subdivide_s']:.3f}s of host "
+        f"time in all")
     if launches <= 0:
         raise AssertionError("the forward never launched the roll kernel")
     if launches != len(shapes):
@@ -341,8 +417,12 @@ def main_path_phase():
     pipe.spot_model.sweep(m, offsets, strict=1, with_similarity=True).powers
     sweep_s = time.time() - t0
     log(f"fine sweep alone (B={len(offsets)}, T={m.shape[1]}): {sweep_s:.3f}s")
-    return pipe, mix, shapes, launches, {
+    return pipe, mix, shapes, launches, (patches, audio), {
         "wall_s": wall, "heads": n, **metrics,
+        "subdivided_beside_coarse": overlap["beside_coarse"],
+        "coarse_candidates": overlap["candidates"],
+        "subdivisions": overlap["subdivided"],
+        "subdivide_s": overlap["subdivide_s"],
         "fine_sweep_alone_s": sweep_s,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
@@ -514,7 +594,6 @@ def eval_phase() -> dict:
     algorithms, whose results must be equal; checks and quality numbers."""
     import torch
 
-    from acousticswarms_speech_tpu_torch.ops import shift as shift_ops
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline import throughput
@@ -522,7 +601,6 @@ def eval_phase() -> dict:
     from acousticswarms_speech_tpu_torch.pipeline.evaluate import \
         evaluate_dataset
     from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
-    from acousticswarms_speech_tpu_torch.search import spotform
 
     scenes = sorted(d for d in os.listdir(DEV_SET)
                     if os.path.isdir(os.path.join(DEV_SET, d)))
@@ -543,12 +621,7 @@ def eval_phase() -> dict:
     real_setup = clock.wrap(JointPipeline, "setup")
     real_forward = clock.wrap(JointPipeline, "forward")
     real_run = throughput.PipelinedRunner.run
-    real_roll = shift_ops.roll_channels_batch
-    shapes, stats = [], {}
-
-    def recording_roll(m, s):
-        shapes.append((m.clone(), s.clone()))
-        return real_roll(m, s)
+    stats = {}
 
     def recording_run(self, *args, **kwargs):
         results, st = real_run(self, *args, **kwargs)
@@ -571,14 +644,9 @@ def eval_phase() -> dict:
     try:
         # The inputs of every roll launch of this pass are recorded, to hold
         # the kernel against its plain version on them afterwards.
-        spotform.roll_channels_batch = recording_roll
-        shift_ops.roll_channels_batch = recording_roll
-        try:
+        with recording_rolls() as shapes:
             counts, default_s, default_launches, default_clock = \
                 timed_eval(default_dir)
-        finally:
-            spotform.roll_channels_batch = real_roll
-            shift_ops.roll_channels_batch = real_roll
         if default_launches != len(shapes) or default_launches <= 0:
             raise AssertionError(f"serial eval: {default_launches} roll "
                                  f"launches for {len(shapes)} rolls")
@@ -734,6 +802,389 @@ def _oracle_sisdri(pipe, scenes) -> dict:
         values += sisdri
     return {"per_scene": per_scene, "values": values,
             "mean": float(np.mean(values))}
+
+
+ROLL_KERNEL = "roll_channels_kernel"  # csrc/roll.cu's kernel, in the trace
+PROFILE_DIR = os.path.join(OUT_DIR, "profile")
+
+
+def _union_s(intervals) -> float:
+    """Total length of the union of (start, end) intervals, in their unit."""
+    total, cur = 0.0, None
+    for a, b in sorted(intervals):
+        if cur is None or a > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return total + (cur[1] - cur[0] if cur is not None else 0.0)
+
+
+def profile_phase(pipe, mix) -> dict:
+    """One more forward of the bench scene with profile_dir: device busy
+    time (the union of the kernels' intervals in the trace) and idle share
+    over the forward's window (the first stage span's start to the last
+    one's end, widened to the first and last kernel), the top device ops,
+    each stage span's time; the trace's roll kernels must number the
+    kernel counter's launches."""
+    from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
+        roll_channels_batch_cuda
+    from acousticswarms_speech_tpu_torch.pipeline.joint import STAGES
+
+    shutil.rmtree(PROFILE_DIR, ignore_errors=True)
+    with recording_rolls() as rolls:
+        roll_channels_batch_cuda.launches = 0
+        sync()
+        t0 = time.time()
+        patches, *_ = pipe.forward(mix, profile_dir=PROFILE_DIR)
+        sync()
+        wall = time.time() - t0
+        launches = roll_channels_batch_cuda.launches
+    traces = glob.glob(os.path.join(PROFILE_DIR, "*.pt.trace.json"))
+    if len(traces) != 1 or not patches:
+        raise AssertionError(f"profiled forward: traces {traces}, "
+                             f"{len(patches)} heads")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    spans = {e["name"]: e for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") in STAGES}
+    if sorted(spans) != sorted(STAGES) or not kernels:
+        raise AssertionError(f"trace: spans {sorted(spans)}, "
+                             f"{len(kernels)} kernels")
+    trace_rolls = sum(ROLL_KERNEL in e["name"] for e in kernels)
+    if trace_rolls != launches or launches <= 0:
+        raise AssertionError(f"trace holds {trace_rolls} roll kernels, the "
+                             f"counter {launches}")
+    hold_rolls(rolls, "profiled forward")
+    starts = [e["ts"] for e in kernels] + [e["ts"] for e in spans.values()]
+    ends = ([e["ts"] + e["dur"] for e in kernels]
+            + [e["ts"] + e["dur"] for e in spans.values()])
+    window_s = (max(ends) - min(starts)) / 1e6
+    busy_s = _union_s((e["ts"], e["ts"] + e["dur"]) for e in kernels) / 1e6
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        by_name.setdefault(e["name"], []).append(e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
+    out = {
+        "wall_s": wall, "trace_mb": os.path.getsize(traces[0]) / 1e6,
+        "window_s": window_s, "device_busy_s": busy_s,
+        "idle_share": 1.0 - busy_s / window_s, "kernels": len(kernels),
+        "kernel_names": len(by_name), "roll_launches": launches,
+        "trace_roll_kernels": trace_rolls,
+        "stage_spans_s": {k: spans[k]["dur"] / 1e6 for k in STAGES},
+        "top_device_ops": [{"name": name[:120], "count": len(d),
+                            "total_s": sum(d) / 1e6} for name, d in top],
+    }
+    log(f"profile: forward with profile_dir {wall:.3f}s (trace "
+        f"{out['trace_mb']:.1f} MB written at its end); in the trace the "
+        f"forward spans {window_s:.3f}s, device busy {busy_s:.3f}s "
+        f"(union of {len(kernels)} kernels of {len(by_name)} names), idle "
+        f"share {out['idle_share']:.3f}; roll kernels {trace_rolls} in the "
+        f"trace, {launches} by the counter; equal to plain")
+    log(f"profile: stage spans (s) "
+        f"{json.dumps({k: round(v, 4) for k, v in out['stage_spans_s'].items()})}")
+    for r in out["top_device_ops"]:
+        log(f"profile: top device op {r['total_s']:.4f}s in {r['count']} "
+            f"launches: {r['name']}")
+    return out
+
+
+# bf16 against float32 and the CPU: the card's bfloat16 is held to the
+# port's CPU bfloat16 code at most BF16_MARGIN_DB below the CPU bfloat16's
+# own SI-SDR against the card's float32 (two bfloat16 results with their
+# own roundings each lie that far from float32)
+BF16_MARGIN_DB = 6.0
+
+
+def _bf16_nets_check(pipe, pipe16, mix, fine_mix, fine_shifts, heads):
+    """(a): SpotNet on 8 candidates of the fine sweep's rolled inputs and
+    SepNet at the bench scene's heads, in bfloat16 on the card and on the
+    CPU, against the card's float32."""
+    import numpy as np
+    import torch
+
+    from acousticswarms_speech_tpu_torch.models import load_release
+    from acousticswarms_speech_tpu_torch.models.common import normalize_input
+    from acousticswarms_speech_tpu_torch.ops.shift import \
+        roll_channels_batch_plain
+    from acousticswarms_speech_tpu_torch.search.spotform import \
+        SeparationInference
+    from acousticswarms_speech_tpu_torch.utils.metrics import si_sdr
+
+    def sisdr_rows(a, b):
+        return [float(si_sdr(x, y)) for x, y in zip(a, b)]
+
+    def check(label, card16, cpu16, card32):
+        got = sisdr_rows(card16, cpu16)
+        own = sisdr_rows(cpu16, card32)
+        card_own = sisdr_rows(card16, card32)
+        if not (np.isfinite(card16).all()
+                and min(got) >= min(own) - BF16_MARGIN_DB):
+            raise AssertionError(f"{label}: card bf16 vs CPU bf16 SI-SDR "
+                                 f"{got}, CPU bf16 vs card f32 {own}")
+        log(f"bf16 {label}: card vs CPU bf16 SI-SDR min {min(got):.2f} dB "
+            f"(bound {min(own) - BF16_MARGIN_DB:.2f}); against the card's "
+            f"f32: CPU bf16 min {min(own):.2f} dB, card bf16 min "
+            f"{min(card_own):.2f} dB; max abs err card vs CPU bf16 "
+            f"{float(np.abs(card16 - cpu16).max()):.3e} (peak "
+            f"{float(np.abs(cpu16).max()):.4f})")
+        return {"card_vs_cpu_min_db": min(got), "cpu_bf16_vs_f32_min_db":
+                min(own), "card_bf16_vs_f32_min_db": min(card_own)}
+
+    out = {}
+    x = torch.as_tensor(fine_mix, device=DEVICE)
+    s = torch.as_tensor(fine_shifts[:8], device=DEVICE)
+    normed, _, _ = normalize_input(roll_channels_batch_plain(x, s))
+    w = torch.tensor([[1.0, 0.0]]).expand(8, 2)
+    spot_cpu = load_release(SPOT_DIR, "cpu", torch.bfloat16)
+    with torch.no_grad():
+        card16 = pipe16.spot_model.model(normed.bfloat16(),
+                                         w.to(DEVICE).bfloat16())
+        card32 = pipe.spot_model.model(normed, w.to(DEVICE))
+        cpu16 = spot_cpu(normed.cpu().bfloat16(), w.bfloat16())
+    del spot_cpu
+    out["spotnet"] = check(f"SpotNet (B=8, T={fine_mix.shape[1]})",
+                           card16.float().cpu().numpy()[:, 0],
+                           cpu16.float().numpy()[:, 0],
+                           card32.cpu().numpy()[:, 0])
+    offs = [p[0].sample_offset for p in heads]
+    cpu_sep = SeparationInference(load_release(SEP_DIR, "cpu"), use_bf16=True,
+                                  device="cpu")
+    out["sepnet"] = check(f"SepNet ({len(offs)} heads, T={mix.shape[1]})",
+                          pipe16.sep_model.infer_sample(mix, offs),
+                          cpu_sep.infer_sample(mix, offs),
+                          pipe.sep_model.infer_sample(mix, offs))
+    return out
+
+
+def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
+    """(a) the networks in bfloat16, card against the CPU; (b) the forward
+    of the bench scene with use_bf16=True, warm-up then timed, beside the
+    float32 forward's heads and audio."""
+    import numpy as np
+
+    from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
+        roll_channels_batch_cuda
+    from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
+    from acousticswarms_speech_tpu_torch.utils.metrics import si_sdr
+
+    heads32, audio32 = f32_out
+    pipe16 = JointPipeline(pipe.spot_model.model, pipe.sep_model.model,
+                           device=DEVICE, use_bf16=True)
+    out = {"nets": _bf16_nets_check(pipe, pipe16, mix, fine_mix, fine_shifts,
+                                    heads32)}
+    pipe16.setup(MIC_POS, ROI, cache_dir=CACHE_DIR)
+    t0 = time.time()
+    pipe16.forward(mix)
+    sync()
+    warm = time.time() - t0
+    with recording_rolls() as rolls:
+        roll_channels_batch_cuda.launches = 0
+        pipe16.spot_model.calls = 0
+        sync()
+        t0 = time.time()
+        patches, audio_loc, audio, *_ = pipe16.forward(mix)
+        sync()
+        wall = time.time() - t0
+        launches = roll_channels_batch_cuda.launches
+    audio = np.asarray(audio)
+    if not patches or audio.shape != (len(patches), mix.shape[1]) or not \
+            np.isfinite(audio).all() or launches <= 0:
+        raise AssertionError(f"bf16 forward: {len(patches)} heads, audio "
+                             f"{audio.shape}, {launches} roll launches")
+    hold_rolls(rolls, "bf16 forward")
+    pos32 = np.array([p[0].center_pos()[:2] for p in heads32])
+    matched = []
+    for k, p in enumerate(patches):
+        d = np.linalg.norm(pos32 - np.asarray(p[0].center_pos()[:2]), axis=1)
+        j = int(d.argmin())
+        matched.append({"head": k, "f32_head": j, "distance_m": float(d[j]),
+                        "audio_sisdr_db": float(si_sdr(audio[k],
+                                                       audio32[j]))})
+    out.update({"warmup_s": warm, "wall_s": wall, "roll_launches": launches,
+                "heads": len(patches), "f32_heads": len(heads32),
+                "matched": matched, **pipe16.stage_metrics()})
+    log(f"bf16 forward: warm-up {warm:.2f}s, timed {wall:.3f}s; stage_metrics "
+        f"{json.dumps(pipe16.stage_metrics())}; roll kernel launches "
+        f"{launches}, equal to plain")
+    log(f"bf16 forward: {len(patches)} heads beside {len(heads32)} in "
+        f"float32; matched (bf16 head, f32 head, distance m, SI-SDR of bf16 "
+        f"audio against f32 dB): "
+        + "; ".join(f"({m['head']}, {m['f32_head']}, {m['distance_m']:.3f}, "
+                    f"{m['audio_sisdr_db']:.2f})" for m in matched))
+    return out
+
+
+def _same_geometry(a, b) -> bool:
+    import numpy as np
+
+    va, vb = vars(a), vars(b)
+    return sorted(va) == sorted(vb) and all(
+        np.array_equal(np.asarray(va[k]), np.asarray(vb[k])) for k in va)
+
+
+def bf16_eval_phase(evaluation: dict) -> dict:
+    """(c) evaluate_dataset over the dev scenes in bfloat16, serially,
+    reading the geometry caches that scripts/precompute_geometry.py wrote
+    into a copy of the dev set (each checked first against a fresh
+    build), beside the float32 pass's figures."""
+    from acousticswarms_speech_tpu_torch.dsp.geometry import build_geometry
+    from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
+        roll_channels_batch_cuda
+    from acousticswarms_speech_tpu_torch.pipeline.analyze import analyze
+    from acousticswarms_speech_tpu_torch.pipeline.evaluate import (
+        evaluate_dataset, preprocess_metadata)
+    from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
+    from acousticswarms_speech_tpu_torch.scripts.precompute_geometry import \
+        precompute
+
+    data = os.path.join(OUT_DIR, "devdata_bf16")
+    folder = os.path.join(OUT_DIR, "eval_serial_bf16")
+    for d in (data, folder):
+        shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(DEV_SET, data)
+    t0 = time.time()
+    scenes = precompute(data)
+    precompute_s = time.time() - t0
+    t0 = time.time()
+    for scene in scenes:
+        with open(os.path.join(scene, "metadata.json")) as f:
+            _, mics, _, _, _, roi = preprocess_metadata(json.load(f))
+        caches = glob.glob(os.path.join(scene, "tdoa_geometry_*.npz"))
+        if len(caches) != 1 or not _same_geometry(
+                build_geometry(mics, roi, cache_dir=scene),
+                build_geometry(mics, roi)):
+            raise AssertionError(f"geometry cache of {scene}: {caches}")
+    check_s = time.time() - t0
+    log(f"eval bf16: precompute_geometry wrote {len(scenes)} caches in "
+        f"{precompute_s:.2f}s; each equals a fresh build ({check_s:.2f}s)")
+
+    pipe = JointPipeline.from_experiments(SPOT_DIR, SEP_DIR, device=DEVICE,
+                                          use_bf16=True)
+    clock = _StageClock()
+    real_setup = clock.wrap(JointPipeline, "setup")
+    real_forward = clock.wrap(JointPipeline, "forward")
+    try:
+        with recording_rolls() as rolls:
+            roll_channels_batch_cuda.launches = 0
+            sync()
+            t0 = time.time()
+            counts = evaluate_dataset(pipe, data, results_folder=folder,
+                                      cache_geometry=True)
+            sync()
+            wall = time.time() - t0
+            launches = roll_channels_batch_cuda.launches
+    finally:
+        JointPipeline.setup = real_setup
+        JointPipeline.forward = real_forward
+    results = _read_results(folder)
+    if len(results) != len(scenes) or launches != len(rolls) or \
+            launches <= 0 or not all(map(_finite_numbers, results.values())):
+        raise AssertionError(f"bf16 eval: {len(results)} results, "
+                             f"{launches} launches for {len(rolls)} rolls")
+    hold_rolls(rolls, "bf16 evaluation")
+    summ = analyze(folder, verbose=False)
+    if summ["tp"] <= 0 or not _finite_numbers(summ):
+        raise AssertionError(f"analyze of the bf16 run: {summ}")
+    p, r = summ["precision"], summ["recall"]
+    n = len(scenes)
+    out = {"scenes": n, "counts": counts, "precision": p, "recall": r,
+           "f1": 2 * p * r / (p + r) if p + r > 0 else 0.0,
+           **{k: summ[k] for k in ("tp", "fp", "fn", "sisdri_mean",
+                                   "sisdri_mir_mean", "loc_err_median")},
+           "serial_s": wall, "s_per_scene": wall / n,
+           "setup_s": clock.seconds.get("setup", 0.0),
+           "forward_s": clock.seconds.get("forward", 0.0),
+           "precompute_s": precompute_s, "roll_launches": launches}
+    f32 = evaluation
+    log(f"eval bf16 (cached geometry): P {p:.4f} R {r:.4f} F1 "
+        f"{out['f1']:.4f} (tp {summ['tp']}, fp {summ['fp']}, fn "
+        f"{summ['fn']}); SI-SDRi {summ['sisdri_mean']:.3f} dB (mir "
+        f"{summ['sisdri_mir_mean']:.3f}); {wall / n:.3f} s/scene, setup "
+        f"{out['setup_s']:.2f}s, forward {out['forward_s']:.2f}s in all; "
+        f"roll kernel launches {launches}, equal to plain")
+    log(f"eval f32 (geometry built per scene, same run): P "
+        f"{f32['precision']:.4f} R {f32['recall']:.4f} F1 {f32['f1']:.4f}; "
+        f"SI-SDRi {f32['sisdri_mean']:.3f} dB (mir "
+        f"{f32['sisdri_mir_mean']:.3f}); {f32['serial_s_per_scene']:.3f} "
+        f"s/scene, setup {f32['serial_setup_s']:.2f}s, forward "
+        f"{f32['serial_forward_s']:.2f}s in all")
+    return out
+
+
+def tools_phase() -> dict:
+    """The release life cycle on the trained experiments of the training
+    phase: export_release, read back through JointPipeline.from_release
+    (the float16 rounding of the trained parameters), then
+    seed_checkpoint_from_release into a fresh experiment from which
+    train() resumes for one step."""
+    import torch
+
+    from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
+    from acousticswarms_speech_tpu_torch.scripts import (
+        export_release, seed_checkpoint_from_release)
+    from acousticswarms_speech_tpu_torch.training import checkpoints, train
+
+    exps = [os.path.join(OUT_DIR, "train_" + os.path.basename(d))
+            for d in (SPOT_DIR, SEP_DIR)]
+    t0 = time.time()
+    for exp in exps:
+        export_release.export(exp, DEVICE)
+    pipe = JointPipeline.from_release(*exps, device=DEVICE)
+    for exp, model in zip(exps, (pipe.spot_model.model, pipe.sep_model.model)):
+        name = os.path.basename(exp)
+        want = checkpoints.load_params(os.path.join(
+            exp, "checkpoints", f"{name}_0.msgpack"))
+        got = model.state_dict()
+        if sorted(got) != sorted(want) or not all(
+                torch.equal(got[k].cpu(), v.half().float())
+                for k, v in want.items()):
+            raise AssertionError(f"{name}: release != float16 of trained")
+    del pipe
+    export_s = time.time() - t0
+
+    src = exps[0]
+    seeded = os.path.join(OUT_DIR, "seeded_" + os.path.basename(SPOT_DIR))
+    shutil.rmtree(seeded, ignore_errors=True)
+    os.makedirs(os.path.join(seeded, "release"))
+    shutil.copy(os.path.join(src, "release", "params_f16.msgpack"),
+                os.path.join(seeded, "release"))
+    with open(os.path.join(src, "description.json")) as f:
+        desc = json.load(f)
+    desc["training_params"]["epochs"] = 2
+    with open(os.path.join(seeded, "description.json"), "w") as f:
+        json.dump(desc, f)
+    t0 = time.time()
+    ckpt = seed_checkpoint_from_release.seed(seeded, 0, DEVICE)
+    loaded, steps = [], []
+    real_load = checkpoints.load_params
+
+    def recording_load(path):
+        loaded.append(os.path.relpath(path, seeded))
+        return real_load(path)
+
+    checkpoints.load_params = recording_load
+    try:
+        train.train(seeded, max_steps_per_epoch=1, device=DEVICE,
+                    on_step=lambda model, info: steps.append(info))
+    finally:
+        checkpoints.load_params = real_load
+    name = os.path.basename(seeded)
+    want_ckpt = os.path.join("checkpoints", f"{name}_0.msgpack")
+    if (ckpt is None or loaded[:1] != [want_ckpt] or len(steps) != 1
+            or not os.path.exists(os.path.join(
+                seeded, "checkpoints", f"{name}_1.msgpack"))):
+        raise AssertionError(f"seeded resume: loaded {loaded}, steps {steps}")
+    out = {"export_s": export_s, "seed_and_resume_s": time.time() - t0,
+           "resumed_from": loaded[0], "resume_loss": steps[0]["loss"]}
+    log(f"tools: export_release of both trained experiments, read back "
+        f"through JointPipeline.from_release equal to the float16 of the "
+        f"trained parameters ({export_s:.2f}s); seed_checkpoint_from_release "
+        f"then train() resumed from {loaded[0]} for one step (loss "
+        f"{steps[0]['loss']:.4f}) into epoch 1 ({out['seed_and_resume_s']:.2f}s)")
+    return out
 
 
 def _train_experiment(src_dir: str, name: str) -> str:
@@ -1337,16 +1788,27 @@ def main() -> int:
         device = device_phase()
         build_s = build_phase()
         kernel_check_phase()
-        pipe, mix, shapes, launches, summary = main_path_phase()
+        pipe, mix, shapes, launches, f32_out, summary = main_path_phase()
         kernel_row = reference_phase(pipe, mix, shapes, launches)
         log(f"main path summary {json.dumps(summary)}")
         fine_mix, fine_shifts = (t.cpu().numpy() for t in max(
             shapes, key=lambda r: r[1].shape[0] * r[0].shape[1]))
-        del pipe, shapes
+        del shapes
+        t0 = time.time()
+        profile = profile_phase(pipe, mix)
+        log(f"profile phase {time.time() - t0:.2f}s: {json.dumps(profile)}")
+        t0 = time.time()
+        bf16 = bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out)
+        log(f"bf16 phase {time.time() - t0:.2f}s: {json.dumps(bf16)}")
+        del pipe, f32_out
         t0 = time.time()
         evaluation = eval_phase()
         log(f"evaluation phase {time.time() - t0:.2f}s: "
             f"{json.dumps(evaluation)}")
+        t0 = time.time()
+        bf16_eval = bf16_eval_phase(evaluation)
+        log(f"bf16 evaluation phase {time.time() - t0:.2f}s: "
+            f"{json.dumps(bf16_eval)}")
         t0 = time.time()
         roll_channels_batch_cuda.launches = 0
         training = train_phase()
@@ -1357,23 +1819,28 @@ def main() -> int:
         if train_launches != 0:
             raise AssertionError(f"training launched the roll kernel "
                                  f"{train_launches} times")
+        tools, tools_launches = counted("tools", tools_phase)
         generation, gen_launches = counted("generation", generation_phase)
         mining, mine_launches = counted("mining", mining_phase)
         baselines, base_launches = counted("baselines", baselines_phase)
         loader = loader_phase(build_s)
         new_paths = {"generation": generation, "mining": mining,
-                     "baselines": baselines, "loader": loader}
+                     "baselines": baselines, "loader": loader, "tools": tools}
         log(f"new paths: {json.dumps(new_paths)}")
         t0 = time.time()
         mesh = mesh_phase(fine_mix, fine_shifts, mix)
         log(f"mesh phase {time.time() - t0:.2f}s: {json.dumps(mesh)}")
         kernel_row["launches_by_path"] = {
             "joint_forward": launches,
+            "joint_forward_profiled": profile["roll_launches"],
+            "joint_forward_bf16": bf16["roll_launches"],
             "evaluate_serial": evaluation["roll_launches_serial"],
             "evaluate_serial_deterministic":
                 evaluation["roll_launches_serial_deterministic"],
             "evaluate_lanes": evaluation["roll_launches_lanes"],
+            "evaluate_serial_bf16": bf16_eval["roll_launches"],
             "train": train_launches,
+            "tools": tools_launches,
             "generation": gen_launches,
             "mining": mine_launches,
             "baselines": base_launches,

@@ -1,7 +1,9 @@
 """The port's device code without a hand-written kernel (the room render and
 convolution, the MUSIC and TOPS maps) on the card against the same code on
-the CPU, at small sizes; and the candidate-sharded sweep on the card (two
-gloo ranks sharing it, and nccl at world size 1) against the unsharded one.
+the CPU, at small sizes; the candidate-sharded sweep on the card (two
+gloo ranks sharing it, and nccl at world size 1) against the unsharded one;
+the bfloat16 executors on the card against the CPU; and a profiled forward
+whose trace holds the card's kernels.
 
 Every test here carries the `gpu` marker and skips without a CUDA device
 (decided inside a fixture).  This file imports neither JAX nor the JAX
@@ -9,6 +11,7 @@ package, so it runs on a machine that has neither:
 
     python3 -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_device_gpu.py
 """
+import json
 import os
 import sys
 
@@ -28,8 +31,21 @@ from acousticswarms_speech_tpu_torch.dsp.geometry import \
     build_geometry  # noqa: E402
 from acousticswarms_speech_tpu_torch.parallel import ranks  # noqa: E402
 from acousticswarms_speech_tpu_torch.parallel.mesh import launch  # noqa: E402
-from acousticswarms_speech_tpu_torch.search.spotform import \
-    DelayAndSumExecutor  # noqa: E402
+from acousticswarms_speech_tpu_torch.models import SepNet, SpotNet  # noqa: E402
+from acousticswarms_speech_tpu_torch.models.factory import \
+    init_model  # noqa: E402
+from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
+    roll_channels_batch_cuda  # noqa: E402
+from acousticswarms_speech_tpu_torch.pipeline.joint import (  # noqa: E402
+    STAGES,
+    JointPipeline,
+)
+from acousticswarms_speech_tpu_torch.search.spotform import (  # noqa: E402
+    DelayAndSumExecutor,
+    SeparationInference,
+    SpotformExecutor,
+)
+from acousticswarms_speech_tpu_torch.utils.metrics import si_sdr  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -114,3 +130,88 @@ def test_sharded_sweep_on_the_card_matches_unsharded(cuda, backend, world):
         for k in range(37):
             np.testing.assert_allclose(res["waveforms"][k], rows[k],
                                        rtol=1e-6, atol=1e-7)
+
+
+# Narrow networks (the CPU tests' widths), weights from init_model's seed.
+SPOT_SMALL = dict(channels=8, encoder_channels=32, residual_layers=1,
+                  num_head=2, ffw_dim=16, num_transformer_layers=1)
+SEP_SMALL = dict(max_speakers=5, channels=8, encoder_channels=32,
+                 residual_layers=1, num_head=2, ffw_dim=16,
+                 bottleneck_layers=1, bottleneck_ksize=7)
+
+
+def test_bf16_executors_card_match_cpu(cuda):
+    """SpotformExecutor and SeparationInference with use_bf16 on the card
+    against the same code on the CPU, the narrow networks on 8192 samples:
+    bfloat16 rounds after each op in other places on each device (cuDNN's
+    fused epilogues), so powers within 2e-2 relative and every waveform at
+    >= 20 dB SI-SDR against the CPU's."""
+    rng = np.random.default_rng(0)
+    mix = rng.normal(size=(7, 8192)).astype(np.float32)
+    cands = [rng.integers(-40, 40, size=6) for _ in range(12)]
+    spot = init_model(SpotNet(**SPOT_SMALL), seed=0)
+    res = [SpotformExecutor(spot, use_bf16=True, device=dev).sweep(
+        mix, cands, strict=1) for dev in (cuda, "cpu")]
+    np.testing.assert_allclose(res[0].powers, res[1].powers, rtol=2e-2)
+    np.testing.assert_allclose(res[0].powers_win, res[1].powers_win,
+                               rtol=2e-2)
+    rows = [r.gather(range(12), quantize=False) for r in res]
+    for k in range(12):
+        assert si_sdr(rows[0][k], rows[1][k]) >= 20.0, k
+    sep = init_model(SepNet(**SEP_SMALL), seed=1)
+    out = [SeparationInference(sep, use_bf16=True, device=dev).infer_sample(
+        mix, cands[:3]) for dev in (cuda, "cpu")]
+    assert out[0].shape == out[1].shape == (3, 8192)
+    for k in range(3):
+        assert si_sdr(out[0][k], out[1][k]) >= 20.0, k
+
+
+def test_profiled_forward_trace_holds_device_kernels(cuda, tmp_path):
+    """forward(profile_dir=...) on the card, delay-and-sum search and the
+    narrow SepNet on 1 s of the bench scene: the trace holds the five stage
+    spans and the card's kernels, among them as many roll kernels as the
+    kernel's counter gave."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    mix = np.load(os.path.join(repo, ".bench_fixture_v2.npz"))["mix"]
+    mix = mix[:, 48000:96000].astype(np.float32)
+    pipe = JointPipeline(DelayAndSumExecutor(device=cuda),
+                         init_model(SepNet(**SEP_SMALL), seed=1), device=cuda)
+    pipe.setup([[3.0, 1.0, 0.02], [3.5, 1.3, 0.02], [3.5, 0.7, 0.02],
+                [3.7, 1.0, 0.02], [3.3, 1.5, 0.02], [3.3, 0.5, 0.02],
+                [3.6, 1.15, 0.02]], [1.0, 6.2, 0.2, 5.4, 0.1, 0.62],
+               cache_dir=os.path.join(repo, ".bench_cache"))
+    pipe.forward(mix)
+    roll_channels_batch_cuda.launches = 0
+    pipe.forward(mix, profile_dir=str(tmp_path))
+    launches = roll_channels_batch_cuda.launches
+    traces = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    # host spans; the card's copies of them are "gpu_user_annotation"
+    assert sorted(e["name"] for e in events if e.get("name") in STAGES
+                  and e.get("cat") == "user_annotation") == sorted(STAGES)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels, "the trace holds no device kernel"
+    rolls = sum("roll_channels_kernel" in e["name"] for e in kernels)
+    assert rolls == launches > 0
+
+
+def test_lane_sweeps_carry_their_own_events(cuda):
+    """Pipeline lanes (pipeline/throughput.py) share the executor; each
+    sweep records its own completion event, which is_ready() polls until
+    the card is done, and each lane counts its own spot calls."""
+    from acousticswarms_speech_tpu_torch.pipeline.throughput import make_lane
+
+    pipe = JointPipeline(DelayAndSumExecutor(device=cuda), None, device=cuda)
+    lane = make_lane(pipe)
+    assert lane.spot_model.executor is pipe.spot_model.executor
+    assert lane.sep_model is None and lane.device == pipe.device
+    rng = np.random.default_rng(0)
+    mix = rng.normal(size=(7, 72000)).astype(np.float32)
+    cands = [rng.integers(-300, 300, size=6) for _ in range(64)]
+    a = pipe.spot_model.sweep(mix, cands, strict=0)
+    b = lane.spot_model.sweep(mix, cands[:5], strict=1)
+    assert None is not a._done is not b._done is not None
+    torch.cuda.synchronize()
+    assert a.is_ready() and b.is_ready()
+    assert (pipe.spot_model.calls, lane.spot_model.calls) == (64, 5)

@@ -31,7 +31,10 @@ def test_new_modules_import_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "bad: []" in proc.stdout
     for name in ("parallel.mesh", "parallel.ranks", "parallel.dryrun",
-                 "pipeline.joint", "ops.roll_kernel", "training.train"):
+                 "pipeline.joint", "ops.roll_kernel", "training.train",
+                 "scripts.precompute_geometry", "scripts.export_release",
+                 "scripts.export_if_better",
+                 "scripts.seed_checkpoint_from_release", "scripts.quickstart"):
         assert f"'{PACKAGE}.{name}'" in proc.stdout, name
 
 

@@ -88,17 +88,31 @@ def _fixture(start, length):
 
 def _run_both(jax_spot, jax_spot_params, jax_sep, jax_sep_params,
               torch_spot, torch_sep, mix, crop_s):
+    return {"jax": _run_jax(jax_spot, jax_spot_params, jax_sep,
+                            jax_sep_params, mix, crop_s),
+            "torch": _run_port(torch_spot, torch_sep, mix, crop_s)}
+
+
+def _run_jax(jax_spot, jax_spot_params, jax_sep, jax_sep_params, mix, crop_s,
+             **kwargs):
     jp = JaxPipeline(jax_spot, jax_spot_params, jax_sep, jax_sep_params,
-                     sweep_crop_seconds=crop_s)
+                     sweep_crop_seconds=crop_s, **kwargs)
+    return _forward(jp, mix)
+
+
+def _run_port(torch_spot, torch_sep, mix, crop_s, **kwargs):
     tp = JointPipeline(torch_spot, torch_sep, device="cpu",
-                       sweep_crop_seconds=crop_s)
-    cache = os.path.join(REPO, ".bench_cache")
-    out = {}
-    for name, pipe in (("jax", jp), ("torch", tp)):
-        pipe.setup(MIC_POS, ROI, cache_dir=cache, grid_size=GRID)
-        patches, audio_loc, audio, *_ = pipe.forward(mix)
-        out[name] = (patches, audio_loc, audio, pipe)
-    return out
+                       sweep_crop_seconds=crop_s, **kwargs)
+    return _forward(tp, mix)
+
+
+def _forward(pipe, mix, **kwargs):
+    """(patches, audio_loc, audio, pipe) of one forward on the bench
+    scene's array, ROI and committed geometry cache."""
+    pipe.setup(MIC_POS, ROI, cache_dir=os.path.join(REPO, ".bench_cache"),
+               grid_size=GRID)
+    patches, audio_loc, audio, *_ = pipe.forward(mix, **kwargs)
+    return patches, audio_loc, audio, pipe
 
 
 def _assert_same_heads(out):
@@ -116,14 +130,64 @@ def _assert_same_heads(out):
         jp.stage_metrics()["spotform_calls"]
 
 
-def test_joint_pipeline_small_nets_match_jax():
-    """Narrow networks, weights from seeds, 0.5 s of the bench scene."""
+@pytest.fixture(scope="module")
+def small_nets():
+    """Narrow networks with weights from seeds, 0.5 s of the bench scene,
+    and the JAX pipeline's forward of it with a 0.25 s selection crop."""
     spot_t, sep_t = SpotNet(**SPOT_SMALL), SepNet(**SEP_SMALL)
     spot_p = _seeded_weights(spot_t, 0)
     sep_p = _seeded_weights(sep_t, 1)
-    spot_j, sep_j = JaxSpotNet(**SPOT_SMALL), JaxSepNet(**SEP_SMALL)
-    out = _run_both(spot_j, spot_p, sep_j, sep_p, spot_t, sep_t,
-                    _fixture(48000, 24000), crop_s=0.25)
+    mix = _fixture(48000, 24000)
+    jax_out = _run_jax(JaxSpotNet(**SPOT_SMALL), spot_p, JaxSepNet(**SEP_SMALL),
+                       sep_p, mix, 0.25)
+    return spot_t, sep_t, mix, jax_out
+
+
+def test_joint_pipeline_small_nets_match_jax(small_nets):
+    """Narrow networks, weights from seeds, 0.5 s of the bench scene.  On
+    the CPU a sweep is done when it returns, so no candidate is subdivided
+    beside the coarse sweep."""
+    spot_t, sep_t, mix, jax_out = small_nets
+    out = {"jax": jax_out, "torch": _run_port(spot_t, sep_t, mix, 0.25)}
+    assert len(out["torch"][0]) >= 1
+    _assert_same_heads(out)
+
+
+@pytest.mark.parametrize("ready_after", [None, 3])
+def test_coarse_overlap_matches_jax(small_nets, monkeypatch, ready_after):
+    """The stage-1 overlap with the coarse sweep never ready (every
+    candidate subdivided beside it) or ready at the fourth poll (three
+    subdivided beside it, the rest in stage 2): the same heads, audio and
+    spot calls as the JAX package's forward, as with none subdivided
+    beside it (the test above)."""
+    from acousticswarms_speech_tpu_torch.pipeline.mic_array import MicArray
+    from acousticswarms_speech_tpu_torch.search.spotform import SweepResult
+
+    polls, counts = [0], {"subdivided": 0}
+
+    def is_ready(self):
+        polls[0] += 1
+        return ready_after is not None and polls[0] > ready_after
+
+    real_subdivide = MicArray.subdivide_patch
+    real_big = MicArray.spotform_big_patch
+
+    def subdivide(self, patch):
+        counts["subdivided"] += 1
+        return real_subdivide(self, patch)
+
+    def big(self, mix, patch_list, *args, **kwargs):
+        counts["beside_coarse"] = counts["subdivided"]
+        counts["candidates"] = len(patch_list)
+        return real_big(self, mix, patch_list, *args, **kwargs)
+
+    monkeypatch.setattr(SweepResult, "is_ready", is_ready)
+    monkeypatch.setattr(MicArray, "subdivide_patch", subdivide)
+    monkeypatch.setattr(MicArray, "spotform_big_patch", big)
+    spot_t, sep_t, mix, jax_out = small_nets
+    out = {"jax": jax_out, "torch": _run_port(spot_t, sep_t, mix, 0.25)}
+    want = counts["candidates"] if ready_after is None else ready_after
+    assert counts["beside_coarse"] == want > 0
     assert len(out["torch"][0]) >= 1
     _assert_same_heads(out)
 

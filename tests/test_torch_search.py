@@ -47,6 +47,7 @@ def scene_stages(tmp_path_factory):
         out[name] = dict(srp_map=srp_map, patches=patches, big=big_offsets,
                          pairs=pairs, audio=audio, heads=heads, n_spot=n_spot)
     assert len(os.listdir(cache)) == 1  # one geometry file, shared
+    out["mix"], out["cache"] = mix, cache
     return out
 
 
@@ -85,6 +86,34 @@ def test_mic_array_stages_match_jax(scene_stages):
                                       hj[4]["audio_offset"])
         assert ht[3] == hj[3]
         # both quantize to int16 per row: one step of 2^-15 of the peak
+        np.testing.assert_allclose(at, aj, atol=2 * np.abs(aj).max() / 32767)
+
+
+def test_mic_array_queued_sweep_and_subdivided_match_jax(scene_stages):
+    """Stages 1-3 with the coarse sweep queued before the call
+    (`spotform_big_patch(..., sweep=)`) and every other candidate
+    subdivided ahead (`spotform_small_patch_parallel(..., subdivided=)`),
+    as JointPipeline does beside the coarse sweep: the JAX package's
+    survivors, cluster heads and NMS output."""
+    j, mix = scene_stages["jax"], scene_stages["mix"]
+    arr = MicArray(MIC_POS, spk_range=ROI, grid_size=0.05,
+                   cache_dir=scene_stages["cache"], device="cpu")
+    spot = spotform.SweepLane(spotform.DelayAndSumExecutor(device="cpu"))
+    patches, _ = arr.apply_srp_phat(mix)
+    coarse = spot.sweep(mix, patches, strict=0)
+    subdivided = {id(p): arr.subdivide_patch(p) for p in patches[::2]}
+    big = arr.spotform_big_patch(mix, patches, spot, sweep=coarse)
+    assert spot.calls == len(patches)  # the coarse sweep ran once
+    pairs = arr.spotform_small_patch_parallel(mix, big, spot,
+                                              subdivided=subdivided)
+    audio, heads, n_spot, _ = arr.clustering_new(pairs)
+    assert [p.sample_offset.tolist() for p in big] == \
+        [b.tolist() for b in j["big"]]
+    assert [p[3] for p in pairs] == [p[3] for p in j["pairs"]]
+    assert n_spot == j["n_spot"] and len(heads) == len(j["heads"]) >= 1
+    for ht, hj, at, aj in zip(heads, j["heads"], audio, j["audio"]):
+        np.testing.assert_allclose(ht[0].center_pos(), hj[0].center_pos(),
+                                   atol=1e-5)
         np.testing.assert_allclose(at, aj, atol=2 * np.abs(aj).max() / 32767)
 
 

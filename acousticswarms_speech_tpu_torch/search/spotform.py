@@ -131,6 +131,10 @@ class SweepResult:
             sel = to_numpy(rows)
         return {i: sel[k] for k, i in enumerate(indices)}
 
+    def all_waveforms(self) -> np.ndarray:
+        """Every candidate's centered waveform, (n, T), unquantized."""
+        return to_numpy(self._out)[: self.n]
+
 
 class _BatchedSweep:
     """The sweep shared by the executors.  Callers count the candidates
@@ -195,6 +199,11 @@ class _BatchedSweep:
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(self.device))
         return SweepResult(out, n, totals, wins, sim, done)
+
+    def shift_and_sep(self, input_channels, patch_list,
+                      strict: int = 0) -> np.ndarray:
+        """Full-output compatibility API (mean-subtracted waveforms)."""
+        return self.sweep(input_channels, patch_list, strict).all_waveforms()
 
 
 class SweepLane:

@@ -33,7 +33,8 @@ Phases, each printed with the seconds since start:
   evaluation   JointPipeline.from_experiments of both release experiments,
                evaluate_dataset over the 16 dev scenes (.devdata_v2/test):
                serially with cuDNN's default algorithms (as the evaluate
-               CLI runs), then serially and with lanes=2 with cuDNN held
+               CLI runs), then serially and with lanes=2 (over every
+               other scene, 8 of the 16) with cuDNN held
                to deterministic algorithms, where the lanes' result JSONs
                must equal the serial ones apart from stage times; analyze
                reads all three, every output is finite, the roll kernel is
@@ -44,6 +45,21 @@ Phases, each printed with the seconds since start:
                into a copy of the dev set (each checked against a fresh
                build), then evaluate_dataset in bfloat16, serially, reads
                them (--cached_init); P/R/F1 and SI-SDRi beside float32's;
+  retune       (a) evaluate_dataset with power tracing (search/
+               power_trace.py), float32 and deterministic cuDNN, over dev
+               scenes 00000, 00004, 00008 and 00012: results equal to the
+               evaluation phase's deterministic serial pass but for stage
+               times, an nms_summary with pair_sisdr in the trace of every
+               scene that reached the NMS, and scripts/replay_nms at the
+               run's own settings giving each scene its live head count;
+               (b) scripts/retune_release (the traced probe in bfloat16,
+               analyze, the three trace analyzers, the replay in four modes,
+               the provenance) and (d) scripts/run_eval_suite, each as a
+               child process on dev scene 00000 of the bf16 phase's copy
+               (--num_shards 16), both started together: exit 0 and every
+               table printed; (c) scripts/probe_sep_batch at full width,
+               batch sizes 1, 2 and 4: a finite step time and a peak memory
+               for each;
   training     train() of each release description at full width for one
                epoch of 3 steps on the dev scenes, warm-started from the
                release weights; losses finite, and the written checkpoint
@@ -82,9 +98,10 @@ Phases, each printed with the seconds since start:
                roll kernel launches over its sharded work and holds the
                kernel against its plain version on its largest launch.
 The roll kernel is held against its plain version on the inputs of every
-launch of the profiled forward, the bf16 forward and the bf16 evaluation.
-Its launch count is set to 0 before the training, tools, generation, mining
-and baselines phases and read after each; the run fails unless each is 0.  The mesh phase's ranks count theirs (mesh_rank0,
+launch of the profiled forward, the bf16 forward, the bf16 evaluation and
+the traced evaluation.  Its launch count is set to 0 before the batch
+probe and the training, tools, generation, mining and baselines phases and
+read after each; the run fails unless each is 0.  The mesh phase's ranks count theirs (mesh_rank0,
 mesh_rank1); the run fails unless each is above 0.
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
@@ -620,8 +637,22 @@ def eval_phase() -> dict:
     clock = _StageClock()
     real_setup = clock.wrap(JointPipeline, "setup")
     real_forward = clock.wrap(JointPipeline, "forward")
+    timed_forward = JointPipeline.forward
     real_run = throughput.PipelinedRunner.run
     stats = {}
+    # The roll launches of each forward of the serial passes, in scene
+    # order: what the lanes pass over its subset of scenes must launch.
+    forward_launches = []
+
+    def counting_forward(self, *args, **kwargs):
+        before = roll_channels_batch_cuda.launches
+        try:
+            return timed_forward(self, *args, **kwargs)
+        finally:
+            forward_launches.append(roll_channels_batch_cuda.launches - before)
+
+    JointPipeline.forward = counting_forward
+    lane_scenes = scenes[::2]
 
     def recording_run(self, *args, **kwargs):
         results, st = real_run(self, *args, **kwargs)
@@ -656,11 +687,13 @@ def eval_phase() -> dict:
         probe = _repeatability_probe(pipe)
         log(f"eval: repeatability with cudnn.deterministic: "
             f"{json.dumps(probe)}")
+        forward_launches.clear()
         det_counts, serial_s, serial_launches, serial_clock = \
             timed_eval(serial_dir)
+        det_forward_launches = list(forward_launches)
         throughput.PipelinedRunner.run = recording_run
-        lane_counts, lanes_s, lanes_launches, _ = timed_eval(lanes_dir,
-                                                             lanes=2)
+        lane_counts, lanes_s, lanes_launches, _ = timed_eval(
+            lanes_dir, lanes=2, sample_filter=set(lane_scenes).__contains__)
     finally:
         throughput.PipelinedRunner.run = real_run
         JointPipeline.setup = real_setup
@@ -676,12 +709,24 @@ def eval_phase() -> dict:
         for scene, res in results.items():
             if not _finite_numbers(res):
                 raise AssertionError(f"non-finite value in {name} {scene}")
-    if lane_counts != det_counts or sorted(lanes) != sorted(serial):
-        raise AssertionError(f"lanes {lane_counts} != serial {det_counts}")
+    # The serial results of the lanes pass's scenes, and their counts.
+    subset_dir = os.path.join(OUT_DIR, "eval_serial_lane_scenes")
+    shutil.rmtree(subset_dir, ignore_errors=True)
+    os.makedirs(subset_dir)
+    subset = {"tp": 0, "fp": 0, "fn": 0}
+    for s in lane_scenes:
+        res = serial[f"result_{s}.json"]
+        shutil.copy(os.path.join(serial_dir, f"result_{s}.json"), subset_dir)
+        subset["tp"] += len(res["pred"])
+        subset["fp"] += len(res["false_positive"])
+        subset["fn"] += len(res["gt"]) - len(res["pred"])
+    if lane_counts != subset or \
+            sorted(lanes) != [f"result_{s}.json" for s in lane_scenes]:
+        raise AssertionError(f"lanes {lane_counts} != serial {subset}")
     diffs = []
-    for name, want in serial.items():
+    for name in sorted(lanes):
         got = dict(lanes[name])
-        want = dict(want)
+        want = dict(serial[name])
         got.pop("stage_times")
         want.pop("stage_times")
         diffs += [f"{name} {d}" for d in _json_diff(want, got)]
@@ -690,13 +735,19 @@ def eval_phase() -> dict:
             log(f"eval: lanes differ from serial: {d}")
         raise AssertionError(f"{len(diffs)} values of the lanes results "
                              f"differ from the serial ones")
-    if not serial_launches == lanes_launches == default_launches:
+    lane_want = sum(n for s, n in zip(scenes, det_forward_launches)
+                    if s in lane_scenes)
+    if serial_launches != default_launches or \
+            len(det_forward_launches) != len(scenes) or \
+            sum(det_forward_launches) != serial_launches or \
+            lanes_launches != lane_want:
         raise AssertionError(f"roll launches: {default_launches} default, "
                              f"{serial_launches} deterministic serial, "
-                             f"{lanes_launches} lanes")
+                             f"{lanes_launches} lanes ({lane_want} in the "
+                             f"serial pass's forwards of the same scenes)")
     summary = analyze(default_dir, verbose=False)
     det_summary = analyze(serial_dir, verbose=False)
-    if analyze(lanes_dir, verbose=False) != det_summary:
+    if analyze(lanes_dir, verbose=False) != analyze(subset_dir, verbose=False):
         raise AssertionError("analyze differs between serial and lanes runs")
     for name, summ in (("default", summary), ("deterministic", det_summary)):
         if summ["tp"] <= 0 or not _finite_numbers(summ):
@@ -719,7 +770,7 @@ def eval_phase() -> dict:
         "serial_forward_s": default_clock.get("forward", 0.0),
         "deterministic_serial_s": serial_s,
         "deterministic_serial_forward_s": serial_clock.get("forward", 0.0),
-        "deterministic_lanes_s": lanes_s,
+        "lanes_scenes": len(lane_scenes), "deterministic_lanes_s": lanes_s,
         "deterministic_lanes_mixtures_per_s": stats["mixtures_per_sec"],
         "lane_utilization": stats["lane_utilization"],
         "roll_launches_serial": default_launches,
@@ -741,7 +792,8 @@ def eval_phase() -> dict:
         f"s/scene (setup {out['serial_setup_s']:.2f}s, forward "
         f"{out['serial_forward_s']:.2f}s in all); serial, cuDNN "
         f"deterministic {serial_s:.2f}s = {serial_s / n:.3f} s/scene (forward "
-        f"{out['deterministic_serial_forward_s']:.2f}s); lanes=2, cuDNN "
+        f"{out['deterministic_serial_forward_s']:.2f}s); lanes=2 over "
+        f"{len(lane_scenes)} scenes, cuDNN "
         f"deterministic {lanes_s:.2f}s = {stats['mixtures_per_sec']:.4f} "
         f"mixtures/s, lane utilization "
         f"{[round(u, 3) for u in stats['lane_utilization']]}; lanes results "
@@ -1112,6 +1164,261 @@ def bf16_eval_phase(evaluation: dict) -> dict:
         f"s/scene, setup {f32['serial_setup_s']:.2f}s, forward "
         f"{f32['serial_forward_s']:.2f}s in all")
     return out
+
+
+# The retune phase's traced pass: 4 of the 16 dev scenes.
+RETUNE_SCENES = ["00000", "00004", "00008", "00012"]
+# Result fields exempt when the traced pass is held equal to the untraced
+# deterministic pass: the stage times (host clock).  Tracing adds no field
+# to result_*.json; its records go to trace_*.json beside them.
+TRACE_EXEMPT = ("stage_times",)
+# What each table of the re-tune loop prints, after its "=== title ===".
+RETUNE_TABLES = {
+    "analyze": "precision = ",
+    "NMS probe": "NMS totals: in ",
+    "retention root-cause (sub-patch aware)": "retention (big-patch",
+    "threshold tuner": "=== SPOT_POWER_THRESHOLD2 (fine)",
+    "NMS merge-threshold replay": "pair coverage",
+    "labeled TDoA-deviation stats": "GT-labeled",
+    "TDoA gate sweep": "gate sweep at sisdr_thr=",
+    "elect A/B": "elect A/B at sisdr_thr=",
+    "frozen defaults now in effect (probe provenance)":
+        "NMS_SISDR_THRESHOLD = ",
+}
+CHILD_TIMEOUT_S = 300
+
+
+def _traced_pass(evaluation: dict) -> dict:
+    """(a) evaluate_dataset with power tracing, float32, deterministic
+    cuDNN, over RETUNE_SCENES: results equal to the evaluation phase's
+    deterministic serial pass, an nms_summary with pair_sisdr in every
+    trace of a scene that reached the NMS, and replay_nms at the run's own
+    settings giving each scene its live head count."""
+    import collections
+
+    import torch
+
+    from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
+        roll_channels_batch_cuda
+    from acousticswarms_speech_tpu_torch.pipeline.evaluate import \
+        evaluate_dataset
+    from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
+    from acousticswarms_speech_tpu_torch.scripts import replay_nms
+    from acousticswarms_speech_tpu_torch.search import power_trace
+
+    folder = os.path.join(OUT_DIR, "retune_traced")
+    untraced = os.path.join(OUT_DIR, "eval_serial")
+    shutil.rmtree(folder, ignore_errors=True)
+    t0 = time.time()
+    pipe = JointPipeline.from_experiments(SPOT_DIR, SEP_DIR, device=DEVICE)
+    load_s = time.time() - t0
+    was = power_trace.ENABLED
+    power_trace.drain()
+    torch.backends.cudnn.deterministic = True
+    power_trace.ENABLED = True
+    try:
+        with recording_rolls() as rolls:
+            roll_channels_batch_cuda.launches = 0
+            sync()
+            t0 = time.time()
+            evaluate_dataset(pipe, DEV_SET, results_folder=folder,
+                             sample_filter=set(RETUNE_SCENES).__contains__)
+            sync()
+            wall = time.time() - t0
+            launches = roll_channels_batch_cuda.launches
+    finally:
+        power_trace.ENABLED = was
+        power_trace.drain()
+        torch.backends.cudnn.deterministic = False
+    del pipe
+    if launches != len(rolls) or launches <= 0:
+        raise AssertionError(f"traced eval: {launches} roll launches for "
+                             f"{len(rolls)} rolls")
+    hold_rolls(rolls, "traced evaluation")
+    del rolls
+
+    diffs, stage_s = [], {"traced": 0.0, "untraced": 0.0}
+    stages, reached, heads = collections.Counter(), [], {}
+    for scene in RETUNE_SCENES:
+        name = f"result_{scene}.json"
+        with open(os.path.join(folder, name)) as f:
+            got = json.load(f)
+        with open(os.path.join(untraced, name)) as f:
+            want = json.load(f)
+        stage_s["traced"] += sum(got["stage_times"])
+        stage_s["untraced"] += sum(want["stage_times"])
+        for k in TRACE_EXEMPT:
+            got.pop(k)
+            want.pop(k)
+        diffs += [f"{name} {d}" for d in _json_diff(want, got)]
+        heads[scene] = len(got["pred"]) + len(got["false_positive"])
+        with open(os.path.join(folder, f"trace_{scene}.json")) as f:
+            recs = json.load(f)["records"]
+        stages.update(r["stage"] for r in recs)
+        if any(r["stage"] == "fine_clusters" and r["n_clusters"] > 0
+               for r in recs):
+            reached.append(scene)
+            if not any(r["stage"] == "nms_summary"
+                       and r.get("pair_sisdr") is not None for r in recs):
+                raise AssertionError(f"trace_{scene}.json: the scene reached "
+                                     f"the NMS, no nms_summary with "
+                                     f"pair_sisdr")
+    if diffs:
+        for d in diffs[:40]:
+            log(f"retune: traced differs from untraced: {d}")
+        raise AssertionError(f"{len(diffs)} values of the traced results "
+                             f"differ from the untraced deterministic ones")
+
+    with open(os.path.join(folder, "config.json")) as f:
+        settings = replay_nms.live_settings(json.load(f))
+    replayed = {}
+    for fp, _, summary, pairs in replay_nms.load_scenes(folder):
+        scene = os.path.basename(fp)[len("trace_"):-len(".json")]
+        n, _, _, tested, missing, _ = replay_nms.replay(summary, pairs,
+                                                        **settings)
+        replayed[scene] = {"live": heads[scene], "replayed": n,
+                           "pairs_tested": tested, "pairs_untested": missing}
+        # Exact when every windowed test comes from the live pass; a pair it
+        # did not test counts as not similar, so the replay can only keep
+        # more heads than the live pass did (a bound).
+        if (missing == 0 and n != heads[scene]) or n < heads[scene]:
+            raise AssertionError(f"replay of {scene}: {replayed[scene]}")
+        if missing:
+            log(f"retune: replay of {scene} is a bound, not exact: {missing} "
+                f"windowed pairs the live pass did not test; {n} heads >= "
+                f"{heads[scene]} live")
+    if sorted(replayed) != reached:
+        raise AssertionError(f"replayable scenes {sorted(replayed)}, scenes "
+                             f"that reached the NMS {reached}")
+    n = len(RETUNE_SCENES)
+    det_per_scene = evaluation["deterministic_serial_s"] / evaluation["scenes"]
+    out = {"scenes": n, "from_experiments_s": load_s, "wall_s": wall,
+           "s_per_scene": wall / n,
+           "untraced_deterministic_s_per_scene": det_per_scene,
+           "stage_s_traced": stage_s["traced"],
+           "stage_s_untraced": stage_s["untraced"],
+           "roll_launches": launches, "records_by_stage": dict(stages),
+           "replay": replayed}
+    log(f"retune (a): traced evaluation of {n} dev scenes in {wall:.2f}s = "
+        f"{wall / n:.3f} s/scene (untraced deterministic pass "
+        f"{det_per_scene:.3f} s/scene over its 16 scenes); stage times of "
+        f"these scenes {stage_s['traced']:.3f}s traced, "
+        f"{stage_s['untraced']:.3f}s untraced; results equal to the "
+        f"untraced deterministic pass apart from {list(TRACE_EXEMPT)}; roll "
+        f"kernel launches {launches}, equal to plain")
+    log(f"retune (a): records by stage {json.dumps(dict(sorted(stages.items())))}")
+    log(f"retune (a): replay_nms at the live settings {json.dumps(settings)}: "
+        f"{json.dumps(replayed)}")
+    return out
+
+
+def _start_child(args: list[str], log_name: str):
+    path = os.path.join(OUT_DIR, log_name)
+    f = open(path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", *args], cwd=REPO,
+                            stdout=f, stderr=subprocess.STDOUT,
+                            stdin=subprocess.DEVNULL)
+    return proc, f, path
+
+
+def _wait_children(children) -> list[tuple[int, str, float]]:
+    """(exit code, output, seconds) of each started child; a child that
+    outlasts CHILD_TIMEOUT_S is killed."""
+    t0 = time.time()
+    out = []
+    try:
+        for proc, f, path in children:
+            try:
+                code = proc.wait(timeout=max(1.0, CHILD_TIMEOUT_S
+                                             - (time.time() - t0)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                code = proc.wait()
+            f.close()
+            with open(path) as fh:
+                out.append((code, fh.read(), time.time() - t0))
+    finally:
+        for proc, f, _ in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    return out
+
+
+def _check_retune_loop(code: int, text: str) -> list[str]:
+    """The loop's exit code and, after each step's title, its table."""
+    faults = [] if code == 0 else [f"exit code {code}"]
+    for title, marker in RETUNE_TABLES.items():
+        head = f"=== {title} ==="
+        at = text.find(head)
+        if at < 0 or text.find(marker, at) < 0:
+            faults.append(f"no '{marker}' after '{head}'")
+    return faults
+
+
+def retune_phase(evaluation: dict) -> dict:
+    """(a) the traced pass; (b) the re-tune loop (scripts/retune_release)
+    and (d) the evaluation suite (scripts/run_eval_suite) as child
+    processes in bfloat16 on one scene of the bf16 phase's dev copy with
+    geometry caches, both started together; (c) the separation batch probe
+    at full width, batch sizes 1, 2 and 4."""
+    import torch
+
+    from acousticswarms_speech_tpu_torch.scripts import probe_sep_batch
+
+    traced = _traced_pass(evaluation)
+    torch.cuda.empty_cache()
+
+    data = os.path.join(OUT_DIR, "devdata_bf16")
+    loop_dir = os.path.join(OUT_DIR, "retune_loop")
+    suite_dir = os.path.join(OUT_DIR, "eval_suite")
+    shutil.rmtree(suite_dir, ignore_errors=True)
+    pkg = "acousticswarms_speech_tpu_torch.scripts"
+    children = [
+        _start_child([f"{pkg}.retune_release", loop_dir, "--dataset", data,
+                      "--num_shards", "16", "--shard_index", "0"],
+                     "retune_loop.log"),
+        _start_child([f"{pkg}.run_eval_suite", "--dataset", data,
+                      "--results_folder", suite_dir, "--num_shards", "16",
+                      "--shard_index", "0"], "eval_suite.log"),
+    ]
+    (loop_code, loop_out, loop_s), (suite_code, suite_out, suite_s) = \
+        _wait_children(children)
+    faults = _check_retune_loop(loop_code, loop_out)
+    tables = loop_out[loop_out.find("=== analyze ==="):]
+    for line in tables.splitlines():
+        print(f"  | {line}", flush=True)
+    if faults:
+        print(loop_out[-4000:], flush=True)
+        raise AssertionError(f"retune_release: {faults}")
+    log(f"retune (b): retune_release on dev scene 00000 (bf16, cached "
+        f"geometry) exit 0 in {loop_s:.2f}s, every table printed")
+    suite_results = sorted(glob.glob(os.path.join(suite_dir, "result_*.json")))
+    if suite_code != 0 or [os.path.basename(p) for p in suite_results] != \
+            ["result_00000.json"] or "precision = " not in suite_out:
+        print(suite_out[-4000:], flush=True)
+        raise AssertionError(f"run_eval_suite: exit code {suite_code}, "
+                             f"results {suite_results}")
+    log(f"retune (d): run_eval_suite on dev scene 00000 exit 0 in "
+        f"{suite_s:.2f}s (started with (b))")
+
+    t0 = time.time()
+    rows, probe_launches = counted(
+        "probe_sep_batch", probe_sep_batch.probe, [1, 2, 4], SEP_DIR, DEVICE)
+    probe_s = time.time() - t0
+    for r in rows:
+        if r["failed"] or not (math.isfinite(r["step_s"] or math.nan)
+                               and math.isfinite(r["peak_gb"] or math.nan)):
+            raise AssertionError(f"probe_sep_batch: {r}")
+    log(f"retune (c): probe_sep_batch at full width in {probe_s:.2f}s: "
+        + "; ".join(f"B={r['batch']} step {r['step_s']:.4f}s "
+                    f"({r['step_s_per_sample']:.4f}s/sample), first "
+                    f"{r['first_step_s']:.3f}s, peak {r['peak_gb']:.2f} GB"
+                    for r in rows))
+    return {"traced": traced, "loop_s": loop_s, "suite_s": suite_s,
+            "probe": rows, "probe_s": probe_s,
+            "probe_roll_launches": probe_launches}
 
 
 def tools_phase() -> dict:
@@ -1810,6 +2117,9 @@ def main() -> int:
         log(f"bf16 evaluation phase {time.time() - t0:.2f}s: "
             f"{json.dumps(bf16_eval)}")
         t0 = time.time()
+        retune = retune_phase(evaluation)
+        log(f"retune phase {time.time() - t0:.2f}s: {json.dumps(retune)}")
+        t0 = time.time()
         roll_channels_batch_cuda.launches = 0
         training = train_phase()
         train_launches = roll_channels_batch_cuda.launches
@@ -1839,6 +2149,8 @@ def main() -> int:
                 evaluation["roll_launches_serial_deterministic"],
             "evaluate_lanes": evaluation["roll_launches_lanes"],
             "evaluate_serial_bf16": bf16_eval["roll_launches"],
+            "evaluate_traced": retune["traced"]["roll_launches"],
+            "probe_sep_batch": retune["probe_roll_launches"],
             "train": train_launches,
             "tools": tools_launches,
             "generation": gen_launches,

@@ -2,8 +2,9 @@
 convolution, the MUSIC and TOPS maps) on the card against the same code on
 the CPU, at small sizes; the candidate-sharded sweep on the card (two
 gloo ranks sharing it, and nccl at world size 1) against the unsharded one;
-the bfloat16 executors on the card against the CPU; and a profiled forward
-whose trace holds the card's kernels.
+the bfloat16 executors on the card against the CPU; a profiled forward
+whose trace holds the card's kernels; and a traced evaluation against the
+untraced one.
 
 Every test here carries the `gpu` marker and skips without a CUDA device
 (decided inside a fixture).  This file imports neither JAX nor the JAX
@@ -138,6 +139,48 @@ SPOT_SMALL = dict(channels=8, encoder_channels=32, residual_layers=1,
 SEP_SMALL = dict(max_speakers=5, channels=8, encoder_channels=32,
                  residual_layers=1, num_head=2, ffw_dim=16,
                  bottleneck_layers=1, bottleneck_ksize=7)
+
+
+def test_traced_evaluation_on_the_card_matches_untraced(cuda, tmp_path,
+                                                        monkeypatch):
+    """evaluate_dataset of dev scene 00000 on the card with the narrow
+    networks (two U-Net levels, a 0.25 s selection crop, a 0.1 m grid, the
+    4 strongest coarse survivors) and cuDNN held to deterministic
+    algorithms, untraced and then with power tracing on: the same result
+    JSON but for stage times (so the same heads), and a trace whose
+    nms_summary holds the pair SI-SDR matrix."""
+    from acousticswarms_speech_tpu_torch import constants
+    from acousticswarms_speech_tpu_torch.pipeline.evaluate import \
+        evaluate_dataset
+    from acousticswarms_speech_tpu_torch.search import power_trace, subdivide
+
+    for mod in (constants, subdivide):
+        monkeypatch.setattr(mod, "MAX_BIG_PATCH", 4)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dev = os.path.join(repo, ".devdata_v2", "test")
+    pipe = JointPipeline(
+        init_model(SpotNet(**SPOT_SMALL, stride_list=(4, 4)), seed=0),
+        init_model(SepNet(**SEP_SMALL, stride_list=(4, 4)), seed=1),
+        device=cuda, sweep_crop_seconds=0.25)
+    results = {}
+    for name, traced in (("untraced", False), ("traced", True)):
+        monkeypatch.setattr(power_trace, "ENABLED", traced)
+        power_trace.drain()
+        folder = tmp_path / name
+        evaluate_dataset(pipe, dev, str(folder), grid_size=0.1,
+                         sample_filter={"00000"}.__contains__)
+        with open(folder / "result_00000.json") as f:
+            results[name] = json.load(f)
+        results[name].pop("stage_times")
+    assert results["traced"] == results["untraced"]
+    assert not (tmp_path / "untraced" / "trace_00000.json").exists()
+    with open(tmp_path / "traced" / "trace_00000.json") as f:
+        records = json.load(f)["records"]
+    summary = [r for r in records if r["stage"] == "nms_summary"]
+    assert len(summary) == 1 and summary[0]["pair_sisdr"] is not None
+    heads = results["traced"]["pred"] + results["traced"]["false_positive"]
+    assert heads and len(summary[0]["pair_sisdr"]) == summary[0]["n_in"]
 
 
 def test_bf16_executors_card_match_cpu(cuda):

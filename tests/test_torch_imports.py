@@ -34,7 +34,11 @@ def test_new_modules_import_no_jax():
                  "pipeline.joint", "ops.roll_kernel", "training.train",
                  "scripts.precompute_geometry", "scripts.export_release",
                  "scripts.export_if_better",
-                 "scripts.seed_checkpoint_from_release", "scripts.quickstart"):
+                 "scripts.seed_checkpoint_from_release", "scripts.quickstart",
+                 "scripts.replay_nms", "scripts.tune_thresholds",
+                 "scripts.analyze_probe", "scripts.analyze_retention",
+                 "scripts.retune_release", "scripts.probe_sep_batch",
+                 "scripts.run_eval_suite"):
         assert f"'{PACKAGE}.{name}'" in proc.stdout, name
 
 

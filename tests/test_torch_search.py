@@ -117,11 +117,11 @@ def test_mic_array_queued_sweep_and_subdivided_match_jax(scene_stages):
         np.testing.assert_allclose(at, aj, atol=2 * np.abs(aj).max() / 32767)
 
 
-def test_spotnet_sweep_matches_jax():
-    """SpotformExecutor.sweep with the release SpotNet on five candidates of
-    a 4096-sample slice of the bench scene: powers, windowed powers, the
-    pairwise SI-SDR matrix, and the gathered rows (with and without the
-    int16 quantization).  The JAX sweep pads to its 32-candidate bucket."""
+@pytest.fixture(scope="module")
+def release_sweeps():
+    """The release SpotNet's executors in both packages (the port's in
+    chunks of 2), a 4096-sample slice of the bench scene and five
+    candidates."""
     exp_dir = os.path.join(REPO, "experiments", "speech_localization")
     with open(os.path.join(exp_dir, "description.json")) as f:
         desc = json.load(f)
@@ -138,6 +138,15 @@ def test_spotnet_sweep_matches_jax():
     seg = mix[:, 50000:54096].astype(np.float32)
     rng = np.random.default_rng(0)
     cands = [rng.integers(-20, 20, 6).astype(np.float64) for _ in range(5)]
+    return jax_exec, port_exec, seg, cands
+
+
+def test_spotnet_sweep_matches_jax(release_sweeps):
+    """SpotformExecutor.sweep with the release SpotNet on five candidates of
+    a 4096-sample slice of the bench scene: powers, windowed powers, the
+    pairwise SI-SDR matrix, and the gathered rows (with and without the
+    int16 quantization).  The JAX sweep pads to its 32-candidate bucket."""
+    jax_exec, port_exec, seg, cands = release_sweeps
     # strict=1, the fine sweep's window (SpotNet itself is checked on both
     # window one-hots in test_torch_models.py)
     want = jax_exec.sweep(seg, cands, strict=1, with_similarity=True)
@@ -156,3 +165,31 @@ def test_spotnet_sweep_matches_jax():
         np.testing.assert_allclose(rows_g[i], rows_w[i], atol=1e-4 * peak)
         np.testing.assert_allclose(q_g[i], q_w[i], atol=1e-4 * peak)
     assert lane.calls == 5
+
+
+@pytest.mark.parametrize("strict", [0, 1])
+def test_shift_and_sep_and_all_waveforms_match_jax(release_sweeps, strict):
+    """The full-output API: shift_and_sep (every candidate's centered
+    waveform through SweepResult.all_waveforms) with the release SpotNet on
+    the inputs of test_spotnet_sweep_matches_jax gives exactly one row per
+    candidate (the JAX sweep pads to 32), each within 1e-4 of the JAX row's
+    peak; and all_waveforms of the delay-and-sum sweep of
+    tests/test_sweep_result.py (9 candidates of 4000 samples) gives its
+    9 rows, within 1e-4 of the peak of JAX's."""
+    jax_exec, port_exec, seg, cands = release_sweeps
+    want = jax_exec.shift_and_sep(seg, cands, strict=strict)
+    got = port_exec.shift_and_sep(seg, cands, strict=strict)
+    assert got.shape == want.shape == (len(cands), seg.shape[1])
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=1e-4 * np.abs(w).max())
+
+    rng = np.random.default_rng(0)
+    mix = rng.normal(size=(4, 4000)).astype(np.float32) * 0.1
+    offs = [rng.integers(-30, 30, 3).astype(float) for _ in range(9)]
+    want = jax_spotform.DelayAndSumExecutor().sweep(
+        mix, offs, strict=strict, with_similarity=True).all_waveforms()
+    res = spotform.DelayAndSumExecutor(device="cpu").sweep(
+        mix, offs, strict=strict, with_similarity=True)
+    got = res.all_waveforms()
+    assert got.shape == want.shape == (9, 4000) and res.n == 9
+    np.testing.assert_allclose(got, want, atol=1e-4 * np.abs(want).max())

@@ -1,17 +1,21 @@
-"""Evaluation suite: held-out-scene evaluation, then its analysis (JAX:
-scripts/run_eval_suite.py, without its bench step).
+"""Evaluation suite: the bench, held-out-scene evaluation, then its
+analysis (JAX: scripts/run_eval_suite.py).
 
 Runs, each in a child process:
-  1. the port's `pipeline.evaluate` over a shard of the held-out test set,
+  1. the port's `scripts.bench` -> one JSON line (skipped with
+     --skip_bench);
+  2. the port's `pipeline.evaluate` over a shard of the held-out test set,
      in bfloat16 on the cached geometry;
-  2. the port's `pipeline.analyze` -> precision/recall, localization
+  3. the port's `pipeline.analyze` -> precision/recall, localization
      error, SI-SDRi.
 
-It exits with the first failing child's code.
+A failed bench prints `bench FAILED` and the evaluation still runs, as in
+the JAX script; unlike it, the suite then exits with the bench's code.  A
+failed evaluation or analysis ends the suite with its code.
 
     python -m acousticswarms_speech_tpu_torch.scripts.run_eval_suite \
         [--dataset .speechdata_v1/test] [--num_shards 3] [--shard_index 0] \
-        [--results_folder .results_speech] [--device cuda]
+        [--results_folder .results_speech] [--skip_bench] [--device cuda]
 
 Relative paths given on the command line are taken from the current
 directory; the defaults lie under the repository.  The device defaults to
@@ -43,6 +47,7 @@ def parse_args(argv=None):
                    default=os.path.join(REPO, ".results_speech"))
     p.add_argument("--num_shards", type=int, default=3)
     p.add_argument("--shard_index", type=int, default=0)
+    p.add_argument("--skip_bench", action="store_true")
     p.add_argument("--device", default=None,
                    help="torch device of the evaluation (default cuda; "
                         "raises without a card unless 'cpu' is given)")
@@ -76,21 +81,31 @@ def commands(args) -> list[tuple[str, list[str]]]:
         evaluate += ["--device", args.device]
     analyze = [sys.executable, "-m", f"{PKG}.pipeline.analyze",
                args.results_folder]
-    return [("eval", evaluate), ("analyze", analyze)]
+    steps = [("eval", evaluate), ("analyze", analyze)]
+    if not args.skip_bench:
+        bench = [sys.executable, "-m", f"{PKG}.scripts.bench"]
+        if args.device is not None:
+            bench += ["--device", args.device]
+        steps.insert(0, ("bench", bench))
+    return steps
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     resolve_device(args.device)
+    bench_code = 0
     for title, cmd in commands(args):
         print(f"=== {title} ===", flush=True)
         print(" ".join(cmd), flush=True)
         code = subprocess.run(cmd, cwd=REPO).returncode
-        if code:
+        if code and title == "bench":
+            print("bench FAILED", file=sys.stderr)
+            bench_code = code
+        elif code:
             print(f"run_eval_suite: {title} failed with exit code {code}",
                   file=sys.stderr)
             return code
-    return 0
+    return bench_code
 
 
 if __name__ == "__main__":

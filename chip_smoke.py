@@ -30,13 +30,19 @@ Phases, each printed with the seconds since start:
                on the card and on the CPU; (b) the bench-scene forward with
                use_bf16=True, warm-up then timed, its heads beside the
                float32 ones;
+  bench        scripts/bench as a child process in bfloat16, 3 timed
+               forwards and two lanes over 4 mixtures: exit 0, a last line
+               with the latency rate (1 / the median forward) as `value`,
+               the throughput and 5-entry stage lists, no kernel built
+               (compile_cache), roll kernel launches in every timed forward;
+               its heads and spot calls beside the bf16 phase's;
   evaluation   JointPipeline.from_experiments of both release experiments,
                evaluate_dataset over the 16 dev scenes (.devdata_v2/test):
                serially with cuDNN's default algorithms (as the evaluate
-               CLI runs), then serially and with lanes=2 (over every
-               other scene, 8 of the 16) with cuDNN held
-               to deterministic algorithms, where the lanes' result JSONs
-               must equal the serial ones apart from stage times; analyze
+               CLI runs), then serially and with lanes=2 over every other
+               scene (8 of the 16) with cuDNN held to deterministic
+               algorithms, where the lanes' result JSONs must equal the
+               serial ones apart from stage times; analyze
                reads all three, every output is finite, the roll kernel is
                held against its plain version on the inputs of every
                launch of the first pass, and SepNet at each scene's true
@@ -54,7 +60,8 @@ Phases, each printed with the seconds since start:
                run's own settings giving each scene its live head count;
                (b) scripts/retune_release (the traced probe in bfloat16,
                analyze, the three trace analyzers, the replay in four modes,
-               the provenance) and (d) scripts/run_eval_suite, each as a
+               the provenance) and (d) scripts/run_eval_suite
+               (--skip_bench: the bench phase runs the bench), each as a
                child process on dev scene 00000 of the bf16 phase's copy
                (--num_shards 16), both started together: exit 0 and every
                table printed; (c) scripts/probe_sep_batch at full width,
@@ -607,8 +614,9 @@ def _read_results(folder: str) -> dict:
 def eval_phase() -> dict:
     """evaluate_dataset of the port over the dev scenes on both release
     experiments: serially with cuDNN's default algorithms (what the CLI
-    runs), then serially and with two lanes with deterministic cuDNN
-    algorithms, whose results must be equal; checks and quality numbers."""
+    runs), then serially and with two lanes over every other scene with
+    deterministic cuDNN algorithms, whose results must be equal; checks
+    and quality numbers."""
     import torch
 
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
@@ -678,6 +686,7 @@ def eval_phase() -> dict:
         with recording_rolls() as shapes:
             counts, default_s, default_launches, default_clock = \
                 timed_eval(default_dir)
+        default_forward_launches = list(forward_launches)
         if default_launches != len(shapes) or default_launches <= 0:
             raise AssertionError(f"serial eval: {default_launches} roll "
                                  f"launches for {len(shapes)} rolls")
@@ -688,12 +697,13 @@ def eval_phase() -> dict:
         log(f"eval: repeatability with cudnn.deterministic: "
             f"{json.dumps(probe)}")
         forward_launches.clear()
+        in_lanes = set(lane_scenes).__contains__
         det_counts, serial_s, serial_launches, serial_clock = \
-            timed_eval(serial_dir)
+            timed_eval(serial_dir, sample_filter=in_lanes)
         det_forward_launches = list(forward_launches)
         throughput.PipelinedRunner.run = recording_run
         lane_counts, lanes_s, lanes_launches, _ = timed_eval(
-            lanes_dir, lanes=2, sample_filter=set(lane_scenes).__contains__)
+            lanes_dir, lanes=2, sample_filter=in_lanes)
     finally:
         throughput.PipelinedRunner.run = real_run
         JointPipeline.setup = real_setup
@@ -703,26 +713,16 @@ def eval_phase() -> dict:
 
     default = _read_results(default_dir)
     serial, lanes = _read_results(serial_dir), _read_results(lanes_dir)
-    for name, results in (("default", default), ("serial", serial)):
-        if sorted(results) != [f"result_{s}.json" for s in scenes]:
+    for name, results, want in (("default", default, scenes),
+                                ("serial", serial, lane_scenes),
+                                ("lanes", lanes, lane_scenes)):
+        if sorted(results) != [f"result_{s}.json" for s in want]:
             raise AssertionError(f"{name} results: {sorted(results)}")
         for scene, res in results.items():
             if not _finite_numbers(res):
                 raise AssertionError(f"non-finite value in {name} {scene}")
-    # The serial results of the lanes pass's scenes, and their counts.
-    subset_dir = os.path.join(OUT_DIR, "eval_serial_lane_scenes")
-    shutil.rmtree(subset_dir, ignore_errors=True)
-    os.makedirs(subset_dir)
-    subset = {"tp": 0, "fp": 0, "fn": 0}
-    for s in lane_scenes:
-        res = serial[f"result_{s}.json"]
-        shutil.copy(os.path.join(serial_dir, f"result_{s}.json"), subset_dir)
-        subset["tp"] += len(res["pred"])
-        subset["fp"] += len(res["false_positive"])
-        subset["fn"] += len(res["gt"]) - len(res["pred"])
-    if lane_counts != subset or \
-            sorted(lanes) != [f"result_{s}.json" for s in lane_scenes]:
-        raise AssertionError(f"lanes {lane_counts} != serial {subset}")
+    if lane_counts != det_counts:
+        raise AssertionError(f"lanes {lane_counts} != serial {det_counts}")
     diffs = []
     for name in sorted(lanes):
         got = dict(lanes[name])
@@ -735,19 +735,22 @@ def eval_phase() -> dict:
             log(f"eval: lanes differ from serial: {d}")
         raise AssertionError(f"{len(diffs)} values of the lanes results "
                              f"differ from the serial ones")
-    lane_want = sum(n for s, n in zip(scenes, det_forward_launches)
-                    if s in lane_scenes)
-    if serial_launches != default_launches or \
-            len(det_forward_launches) != len(scenes) or \
+    # The default pass's launches in its forwards of the lanes' scenes
+    default_want = sum(n for s, n in zip(scenes, default_forward_launches)
+                       if in_lanes(s))
+    if len(default_forward_launches) != len(scenes) or \
+            sum(default_forward_launches) != default_launches or \
+            len(det_forward_launches) != len(lane_scenes) or \
             sum(det_forward_launches) != serial_launches or \
-            lanes_launches != lane_want:
-        raise AssertionError(f"roll launches: {default_launches} default, "
+            serial_launches != default_want or \
+            lanes_launches != serial_launches:
+        raise AssertionError(f"roll launches: {default_launches} default "
+                             f"({default_want} in the lanes' scenes), "
                              f"{serial_launches} deterministic serial, "
-                             f"{lanes_launches} lanes ({lane_want} in the "
-                             f"serial pass's forwards of the same scenes)")
+                             f"{lanes_launches} lanes")
     summary = analyze(default_dir, verbose=False)
     det_summary = analyze(serial_dir, verbose=False)
-    if analyze(lanes_dir, verbose=False) != analyze(subset_dir, verbose=False):
+    if analyze(lanes_dir, verbose=False) != det_summary:
         raise AssertionError("analyze differs between serial and lanes runs")
     for name, summ in (("default", summary), ("deterministic", det_summary)):
         if summ["tp"] <= 0 or not _finite_numbers(summ):
@@ -768,6 +771,7 @@ def eval_phase() -> dict:
         "serial_s": default_s, "serial_s_per_scene": default_s / n,
         "serial_setup_s": default_clock.get("setup", 0.0),
         "serial_forward_s": default_clock.get("forward", 0.0),
+        "deterministic_scenes": len(lane_scenes),
         "deterministic_serial_s": serial_s,
         "deterministic_serial_forward_s": serial_clock.get("forward", 0.0),
         "lanes_scenes": len(lane_scenes), "deterministic_lanes_s": lanes_s,
@@ -781,7 +785,8 @@ def eval_phase() -> dict:
     out["oracle_sisdri_mean"] = oracle["mean"]
     out["oracle_sisdri"] = oracle["per_scene"]
     for label, summ in (("cuDNN default", summary),
-                        ("cuDNN deterministic", det_summary)):
+                        (f"cuDNN deterministic, {len(lane_scenes)} scenes",
+                         det_summary)):
         log(f"eval ({label}): P {summ['precision']:.4f} R "
             f"{summ['recall']:.4f} F1 {f1(summ):.4f} (tp {summ['tp']}, fp "
             f"{summ['fp']}, fn {summ['fn']}); SI-SDRi "
@@ -791,9 +796,10 @@ def eval_phase() -> dict:
     log(f"eval: serial, cuDNN default {default_s:.2f}s = {default_s / n:.3f} "
         f"s/scene (setup {out['serial_setup_s']:.2f}s, forward "
         f"{out['serial_forward_s']:.2f}s in all); serial, cuDNN "
-        f"deterministic {serial_s:.2f}s = {serial_s / n:.3f} s/scene (forward "
+        f"deterministic over {len(lane_scenes)} scenes {serial_s:.2f}s = "
+        f"{serial_s / len(lane_scenes):.3f} s/scene (forward "
         f"{out['deterministic_serial_forward_s']:.2f}s); lanes=2 over "
-        f"{len(lane_scenes)} scenes, cuDNN "
+        f"the same scenes, cuDNN "
         f"deterministic {lanes_s:.2f}s = {stats['mixtures_per_sec']:.4f} "
         f"mixtures/s, lane utilization "
         f"{[round(u, 3) for u in stats['lane_utilization']]}; lanes results "
@@ -1069,6 +1075,87 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
     return out
 
 
+# The bench at a cut depth: 3 timed forwards (default 7), 2 lanes over 4
+# mixtures (default 7).
+BENCH_ENV = {"BENCH_REPEATS": "3", "BENCH_LANES": "2",
+             "BENCH_THROUGHPUT_ITEMS": "4", "BENCH_BF16": "1"}
+BENCH_TIMEOUT_S = 300
+
+
+def bench_phase(bf16: dict) -> dict:
+    """scripts/bench as a child process, as users and the evaluation suite
+    run it, in bfloat16 (BENCH_ENV).  Its last stdout line must parse, hold
+    no error, give the latency rate (1 / the median forward) as `value`,
+    the throughput of two lanes and 5-entry stage lists, show no kernel
+    built (the build phase built it) and roll kernel launches in every
+    timed forward.  Its heads and spot calls are logged beside the bf16
+    phase's (cuDNN's default algorithms may break a near-tie otherwise)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "bench.log")
+    t0 = time.time()
+    with open(path, "w") as err:
+        proc = subprocess.run(
+            [sys.executable, "-m", "acousticswarms_speech_tpu_torch.scripts.bench"],
+            cwd=REPO, env=dict(os.environ, **BENCH_ENV), stdout=subprocess.PIPE,
+            stderr=err, text=True, timeout=BENCH_TIMEOUT_S,
+            stdin=subprocess.DEVNULL)
+    wall = time.time() - t0
+    with open(path) as f:
+        for ln in f.read().splitlines():
+            if ln.startswith("[bench]"):
+                print(f"  | {ln}", flush=True)
+    out = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(out[-1])
+    except (IndexError, ValueError):
+        line = {}
+    faults = [] if proc.returncode == 0 else [f"exit code {proc.returncode}"]
+    times = line.get("forward_s") or [math.nan]
+    latency = round(1.0 / statistics.median(times), 4)
+    checks = {
+        "a JSON last line": bool(line),
+        "no error": "error" not in line,
+        "value = 1 / median forward": line.get("value") == latency
+        == line.get("latency_mixtures_per_sec"),
+        "3 timed forwards": len(times) == 3,
+        "throughput of 2 lanes": math.isfinite(
+            line.get("throughput_mixtures_per_sec") or math.nan)
+        and line.get("throughput_lanes") == 2
+        and len(line.get("lane_utilization", [])) == 2,
+        "5 stage medians and IQRs": all(
+            len(line.get(k, [])) == 5 and _finite_numbers(line[k])
+            for k in ("stage_median_s", "stage_iqr_s")),
+        "no kernel built": line.get("compile_cache", {}).get(
+            "entries_added") == 0,
+        "roll launches in every timed forward": len(
+            line.get("roll_launches_per_forward", [])) == 3
+        and min(line["roll_launches_per_forward"]) > 0,
+        "bf16 and TF32 off": (line.get("use_bf16"), line.get("tf32"))
+        == (True, False),
+        "the card's name and power limit": bool(
+            line.get("device", {}).get("name"))
+        and (line["device"].get("power_limit_w") or 0) > 0,
+    }
+    faults += [k for k, ok in checks.items() if not ok]
+    if faults:
+        print("\n".join(out[-5:]), flush=True)
+        raise AssertionError(f"bench: {faults}")
+    log(f"bench line: {json.dumps(line)}")
+    log(f"bench: exit 0 in {wall:.2f}s; latency {line['value']} mixtures/s "
+        f"(forwards {[round(t, 3) for t in times]} s), throughput "
+        f"{line['throughput_mixtures_per_sec']} mixtures/s over 2 lanes "
+        f"(util {line['lane_utilization']}); stage medians "
+        f"{line['stage_median_s']}; roll kernel launches per forward "
+        f"{line['roll_launches_per_forward']}; heads {line['clusters']} and "
+        f"spot calls {line['spot_calls']} beside the bf16 phase's "
+        f"{bf16['heads']} and {bf16['spotform_calls']}")
+    return {"wall_s": wall, "line": line,
+            "roll_launches": sum(line["roll_launches_per_forward"])}
+
+
 def _same_geometry(a, b) -> bool:
     import numpy as np
 
@@ -1291,7 +1378,8 @@ def _traced_pass(evaluation: dict) -> dict:
         raise AssertionError(f"replayable scenes {sorted(replayed)}, scenes "
                              f"that reached the NMS {reached}")
     n = len(RETUNE_SCENES)
-    det_per_scene = evaluation["deterministic_serial_s"] / evaluation["scenes"]
+    det_per_scene = (evaluation["deterministic_serial_s"]
+                     / evaluation["deterministic_scenes"])
     out = {"scenes": n, "from_experiments_s": load_s, "wall_s": wall,
            "s_per_scene": wall / n,
            "untraced_deterministic_s_per_scene": det_per_scene,
@@ -1301,7 +1389,8 @@ def _traced_pass(evaluation: dict) -> dict:
            "replay": replayed}
     log(f"retune (a): traced evaluation of {n} dev scenes in {wall:.2f}s = "
         f"{wall / n:.3f} s/scene (untraced deterministic pass "
-        f"{det_per_scene:.3f} s/scene over its 16 scenes); stage times of "
+        f"{det_per_scene:.3f} s/scene over its "
+        f"{evaluation['deterministic_scenes']} scenes); stage times of "
         f"these scenes {stage_s['traced']:.3f}s traced, "
         f"{stage_s['untraced']:.3f}s untraced; results equal to the "
         f"untraced deterministic pass apart from {list(TRACE_EXEMPT)}; roll "
@@ -1381,7 +1470,8 @@ def retune_phase(evaluation: dict) -> dict:
                      "retune_loop.log"),
         _start_child([f"{pkg}.run_eval_suite", "--dataset", data,
                       "--results_folder", suite_dir, "--num_shards", "16",
-                      "--shard_index", "0"], "eval_suite.log"),
+                      "--shard_index", "0", "--skip_bench"],
+                     "eval_suite.log"),
     ]
     (loop_code, loop_out, loop_s), (suite_code, suite_out, suite_s) = \
         _wait_children(children)
@@ -2109,6 +2199,9 @@ def main() -> int:
         log(f"bf16 phase {time.time() - t0:.2f}s: {json.dumps(bf16)}")
         del pipe, f32_out
         t0 = time.time()
+        bench = bench_phase(bf16)
+        log(f"bench phase {time.time() - t0:.2f}s")
+        t0 = time.time()
         evaluation = eval_phase()
         log(f"evaluation phase {time.time() - t0:.2f}s: "
             f"{json.dumps(evaluation)}")
@@ -2144,6 +2237,7 @@ def main() -> int:
             "joint_forward": launches,
             "joint_forward_profiled": profile["roll_launches"],
             "joint_forward_bf16": bf16["roll_launches"],
+            "bench": bench["roll_launches"],
             "evaluate_serial": evaluation["roll_launches_serial"],
             "evaluate_serial_deterministic":
                 evaluation["roll_launches_serial_deterministic"],

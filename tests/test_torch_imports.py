@@ -38,7 +38,7 @@ def test_new_modules_import_no_jax():
                  "scripts.replay_nms", "scripts.tune_thresholds",
                  "scripts.analyze_probe", "scripts.analyze_retention",
                  "scripts.retune_release", "scripts.probe_sep_batch",
-                 "scripts.run_eval_suite"):
+                 "scripts.run_eval_suite", "scripts.bench"):
         assert f"'{PACKAGE}.{name}'" in proc.stdout, name
 
 

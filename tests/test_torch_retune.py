@@ -373,12 +373,22 @@ def test_retune_steps_are_the_shell_loop_on_port_modules():
 
 
 def test_eval_suite_commands_are_port_modules():
-    """run_eval_suite's children: the port's evaluate with the JAX script's
-    flags (--use_fp16 --cached_init, the shard flags, and --device when
-    given), then the port's analyze of the same folder; no bench step."""
-    args = run_eval_suite.parse_args(["--num_shards", "16", "--device", "cpu",
-                                      "--results_folder", "res"])
-    cmds = run_eval_suite.commands(args)
+    """run_eval_suite's children, as the JAX script's: first the port's
+    bench (--device passed on), then the port's evaluate with the JAX
+    script's flags (--use_fp16 --cached_init, the shard flags, and --device
+    when given), then the port's analyze of the same folder; with
+    --skip_bench, evaluate and analyze alone."""
+    argv = ["--num_shards", "16", "--device", "cpu", "--results_folder", "res"]
+    cmds = run_eval_suite.commands(run_eval_suite.parse_args(argv))
+    assert [t for t, _ in cmds] == ["bench", "eval", "analyze"]
+    assert cmds[0][1] == [sys.executable, "-m", f"{PKG}.scripts.bench",
+                          "--device", "cpu"]
+    args = run_eval_suite.parse_args(argv[:2])  # no --device
+    assert run_eval_suite.commands(args)[0][1][2:] == [f"{PKG}.scripts.bench"]
+    skipped = run_eval_suite.commands(run_eval_suite.parse_args(
+        argv + ["--skip_bench"]))
+    assert skipped == cmds[1:]
+    cmds = skipped
     assert [t for t, _ in cmds] == ["eval", "analyze"]
     for _, cmd in cmds:
         assert cmd[:2] == [sys.executable, "-m"]
@@ -393,6 +403,36 @@ def test_eval_suite_commands_are_port_modules():
     assert cmds[1][1][2:] == [f"{PKG}.pipeline.analyze",
                               os.path.abspath("res")]
     assert "bench" not in " ".join(" ".join(c) for _, c in cmds)
+
+
+@pytest.mark.parametrize("codes,want", [
+    ({"bench": 1}, 1),
+    ({"bench": 3, "eval": 2}, 2),
+    ({"analyze": 4}, 4),
+    ({}, 0),
+])
+def test_eval_suite_runs_on_after_a_failed_bench(monkeypatch, capsys, codes,
+                                                  want):
+    """Children stubbed with the given exit codes: a failed bench prints
+    `bench FAILED`, evaluate and analyze still run, and the suite exits
+    with the bench's code; a failed evaluate ends the suite with its own
+    code before analyze."""
+    ran = []
+
+    def fake_run(cmd, cwd=None):
+        title = {f"{PKG}.scripts.bench": "bench",
+                 f"{PKG}.pipeline.evaluate": "eval",
+                 f"{PKG}.pipeline.analyze": "analyze"}[cmd[2]]
+        ran.append(title)
+        assert cwd == REPO
+        return subprocess.CompletedProcess(cmd, codes.get(title, 0))
+
+    monkeypatch.setattr(run_eval_suite.subprocess, "run", fake_run)
+    assert run_eval_suite.main(["--device", "cpu"]) == want
+    assert ran == (["bench", "eval"] if "eval" in codes
+                   else ["bench", "eval", "analyze"])
+    err = capsys.readouterr().err
+    assert ("bench FAILED" in err) == ("bench" in codes)
 
 
 def test_retune_release_runs_every_step_and_stops_at_a_failure(

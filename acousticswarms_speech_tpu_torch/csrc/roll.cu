@@ -10,7 +10,13 @@
 // stores coalesced and wide: each thread writes 4 consecutive samples with
 // one 16-byte store (when T is a multiple of 4), neighbouring threads write
 // neighbouring 16-byte words, and the unaligned reads at (i - s) mod T hit L2.
-// Grid: x over T-tiles of 4 * blockDim samples, y over the B * M rows.
+// Grid: x over T-tiles of 4 * blockDim samples, y over the B * M rows.  The
+// grid's y extent is at most 65535, so more rows go in several launches of
+// whole mic groups (a multiple of M rows each), every launch given the
+// shifts and output from its first row on: row % M, and with it the body,
+// stays that of a single launch.  (A loop over rows with a stride of
+// gridDim.y cost 6-8% at (336, 7, 72000) and (1124, 10, 72000) on an H100,
+// scripts/roll_ab.py.)
 //
 // Fusing the roll with normalize_input (acousticswarms_speech_tpu/models/
 // common.py:13-20: 16-bit rounding, mean over mics, per-candidate mean and
@@ -22,6 +28,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kItems = 4;
+constexpr int kMaxGridY = 65535;  // CUDA's limit on gridDim.y
 
 __global__ void roll_channels_kernel(const float* __restrict__ mix,
                                      const int* __restrict__ shifts,
@@ -59,16 +66,26 @@ __global__ void roll_channels_kernel(const float* __restrict__ mix,
 
 // mix: (M, T) float32, shifts: (B, M) int32, out: (B, M, T) float32, all
 // contiguous on the current device.  Launches on `stream` without
-// synchronizing and returns cudaGetLastError() of the launch.
+// synchronizing (once per 65535 rows, rounded down to whole mic groups) and
+// returns the first launch error, else cudaSuccess.
 extern "C" int roll_channels_batch_launch(const void* mix, const void* shifts,
                                           void* out, int B, int M, int T,
                                           void* stream) {
   const int tile = kThreads * kItems;
-  dim3 grid((T + tile - 1) / tile, B * M);
-  roll_channels_kernel<<<grid, kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(mix), static_cast<const int*>(shifts),
-      static_cast<float*>(out), M, T);
-  return static_cast<int>(cudaGetLastError());
+  const int rows = B * M;
+  const int per_launch = (kMaxGridY / M) * M;
+  if (per_launch == 0) return static_cast<int>(cudaErrorInvalidValue);
+  for (int row0 = 0; row0 < rows; row0 += per_launch) {
+    const int n = rows - row0 < per_launch ? rows - row0 : per_launch;
+    dim3 grid((T + tile - 1) / tile, n);
+    roll_channels_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(mix),
+        static_cast<const int*>(shifts) + row0,
+        static_cast<float*>(out) + static_cast<size_t>(row0) * T, M, T);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaSuccess);
 }
 

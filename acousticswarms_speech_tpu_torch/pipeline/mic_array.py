@@ -338,3 +338,9 @@ class MicArray:
                                                          pair_sisdr=pair_sisdr)
         return (audio_final, patch_final,
                 self.big_spotforming_times + self.spotforming_times, wrong)
+
+    # Reference-style aliases (public API compatibility, BASELINE.json)
+    Apply_SRP_PHAT = apply_srp_phat
+    Spotform_Big_Patch = spotform_big_patch
+    Spotform_Small_Patch_Parallel = spotform_small_patch_parallel
+    Clustering_new = clustering_new

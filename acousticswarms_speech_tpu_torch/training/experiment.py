@@ -46,6 +46,14 @@ def read_description(exp_dir: str) -> dict:
         return json.load(f)
 
 
+def build_from_description(exp_dir: str):
+    """(model, description) of an experiment directory, the model with its
+    constructor's initial weights."""
+    desc = read_description(exp_dir)
+    model = create_model(desc["model_name"], desc["model_params"])
+    return model, desc
+
+
 def load_model_from_exp(exp_dir: str, mode: str = "best", device=None,
                         dtype: torch.dtype = torch.float32,
                         strict_convert: bool = True) -> torch.nn.Module:

@@ -296,28 +296,51 @@ def train(experiment_dir: str, seed: int = 0, print_interval: int = 20,
         t1 = time.time()
         epoch_loss, n_batches = 0.0, 0
         # Loss scalars are read once per print_interval, not per step, so
-        # the host runs ahead of the device.
+        # the host runs ahead of the device.  ACOUSTIC_TRAIN_TIMING=1 adds
+        # to each print the seconds since the last one spent fetching
+        # batches (with the copy to the device), dispatching steps and
+        # waiting for the losses.
         pending: list = []
-        for batch_idx, batch in enumerate(train_loader):
-            if max_steps_per_epoch and batch_idx >= max_steps_per_epoch:
+        timing = os.environ.get("ACOUSTIC_TRAIN_TIMING", "0") != "0"
+        t_fetch = t_step = t_sync = 0.0
+        it = iter(train_loader)
+        batch_idx = 0
+        while True:
+            t0 = time.time()
+            batch = next(it, None)
+            done = batch is None or (max_steps_per_epoch
+                                     and batch_idx >= max_steps_per_epoch)
+            t_copy = time.time()  # on_step's seconds count from here
+            if not done:
+                batch = to_device(batch, device)
+            t_fetch += time.time() - t0
+            if done:
                 break
             # Per-step perturb seed: every step of every epoch draws fresh
             # noise, deterministically per seed.
             step = (epoch * 1_000_003 + batch_idx
                     if perturb is not None else None)
             t0 = time.time()
-            loss = train_step(to_device(batch, device), step)
+            loss = train_step(batch, step)
+            t_step += time.time() - t0
             pending.append(loss)
             n_batches += 1
             if on_step is not None:
                 info = {"epoch": epoch, "step": batch_idx,
-                        "loss": float(loss), "seconds": time.time() - t0}
+                        "loss": float(loss), "seconds": time.time() - t_copy}
                 on_step(model, info)
             if batch_idx % print_interval == 0:
+                t0 = time.time()
                 epoch_loss += float(torch.stack(pending).sum())
                 pending.clear()
+                t_sync += time.time() - t0
                 print(f"Train Epoch {epoch} [{batch_idx}] "
-                      f"Loss: {float(loss):.6f}")
+                      f"Loss: {float(loss):.6f}"
+                      + (f"  (fetch {t_fetch:.1f}s step {t_step:.1f}s "
+                         f"sync {t_sync:.1f}s)" if timing else ""))
+                if timing:
+                    t_fetch = t_step = t_sync = 0.0
+            batch_idx += 1
         if pending:
             epoch_loss += float(torch.stack(pending).sum())
             pending.clear()

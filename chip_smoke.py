@@ -10,9 +10,10 @@ Phases, each printed with the seconds since start:
                (csrc/wavloader.cpp), both started together;
   kernel check the roll kernel against its plain PyTorch version (exact
                equality: it is a copy) at M = 7, T in {72000, 144000},
-               B in {32, 37, 512}, with edge and random shifts, timed with
-               CUDA events beside the plain version, one torch.gather and
-               the bytes bound;
+               B in {32, 37, 512}, and at B = 7000, M = 10, T = 1024 (70000
+               rows, past the grid's y limit of 65535), with edge and
+               random shifts, timed with CUDA events beside the plain
+               version, one torch.gather and the bytes bound;
   main path    JointPipeline.forward of the port on the 3 s, 7-mic bench
                scene (.bench_fixture_v2.npz) with both release networks at
                full width in float32: a warm-up forward, then a timed one
@@ -36,11 +37,35 @@ Phases, each printed with the seconds since start:
                the throughput and 5-entry stage lists, no kernel built
                (compile_cache), roll kernel launches in every timed forward;
                its heads and spot calls beside the bf16 phase's;
+  many_mics    the 10-mic configuration: two 3 s scenes and a 1 s one
+               (10 mics, 3 talkers) rendered on the card and on the CPU,
+               compared as in the generation phase; both release
+               descriptions at full width with n_mics = 10 and weights
+               from seeds, written as experiments under chip_smoke_out/
+               and loaded by from_experiments; evaluate_dataset and analyze
+               over the two 3 s scenes, the first scene's set-up at grid
+               0.05 m (G, the steering table's bytes, the seconds) and
+               forward giving the float32 figures; that scene's bfloat16
+               forward, its heads matched against float32's, and the
+               networks in bfloat16 at 10 and 20 input channels on seeded
+               inputs of that scene (SpotNet on 2 candidates of 1 s, SepNet
+               on 2 speakers over 0.5 s), card against CPU as in the bf16
+               phase;
+               forward_streaming over the 1 s scene in chunks of 28000
+               samples with 8000 of overlap; the narrow networks (seeded)
+               on 0.5 s of the first scene on the card with deterministic
+               cuDNN, and on the CPU in a child process (with the CPU's
+               bfloat16 networks) started once the experiments are
+               written: the same heads within the 0.1 m grid, audio at
+               >= 30 dB SI-SDR.  The roll kernel's launches are counted per
+               step, the kernel is held against its plain version on every
+               launch and its largest launch is timed; the peak device
+               memory is logged;
   evaluation   JointPipeline.from_experiments of both release experiments,
                evaluate_dataset over the 16 dev scenes (.devdata_v2/test):
                serially with cuDNN's default algorithms (as the evaluate
-               CLI runs), then serially and with lanes=2 over every other
-               scene (8 of the 16) with cuDNN held to deterministic
+               CLI runs), then serially and with lanes=2 over every fourth
+               scene (4 of the 16) with cuDNN held to deterministic
                algorithms, where the lanes' result JSONs must equal the
                serial ones apart from stage times; analyze
                reads all three, every output is finite, the roll kernel is
@@ -48,9 +73,10 @@ Phases, each printed with the seconds since start:
                launch of the first pass, and SepNet at each scene's true
                TDoAs gives the oracle-position SI-SDRi;
   bf16 eval    scripts/precompute_geometry.py writes the geometry caches
-               into a copy of the dev set (each checked against a fresh
-               build), then evaluate_dataset in bfloat16, serially, reads
-               them (--cached_init); P/R/F1 and SI-SDRi beside float32's;
+               into a copy of every other dev scene (8 of the 16), each
+               checked against a fresh build, then evaluate_dataset in
+               bfloat16, serially, reads them (--cached_init); P/R/F1 and
+               SI-SDRi beside float32's;
   retune       (a) evaluate_dataset with power tracing (search/
                power_trace.py), float32 and deterministic cuDNN, over dev
                scenes 00000, 00004, 00008 and 00012: results equal to the
@@ -105,8 +131,9 @@ Phases, each printed with the seconds since start:
                roll kernel launches over its sharded work and holds the
                kernel against its plain version on its largest launch.
 The roll kernel is held against its plain version on the inputs of every
-launch of the profiled forward, the bf16 forward, the bf16 evaluation and
-the traced evaluation.  Its launch count is set to 0 before the batch
+launch of the profiled forward, the bf16 forward, the bf16 evaluation, the
+traced evaluation and the 10-mic phase, which fails unless it launched the
+kernel.  Its launch count is set to 0 before the batch
 probe and the training, tools, generation, mining and baselines phases and
 read after each; the run fails unless each is 0.  The mesh phase's ranks count theirs (mesh_rank0,
 mesh_rank1); the run fails unless each is above 0.
@@ -156,7 +183,10 @@ ROI = [1.0, 6.2, 0.2, 5.4, 0.1, 0.62]
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 MIX_SAMPLES = 144000  # all 3 s of the scene
-KERNEL_SHAPES = [(B, T) for T in (72000, 144000) for B in (32, 37, 512)]
+# (B, M, T): the 7-mic sweeps' sizes, and 7000 candidates of 10 mics, whose
+# 70000 rows pass the grid's y limit of 65535.
+KERNEL_SHAPES = ([(B, 7, T) for T in (72000, 144000) for B in (32, 37, 512)]
+                 + [(7000, 10, 1024)])
 
 _T0 = time.time()
 
@@ -275,12 +305,12 @@ def build_phase() -> dict:
     return {name: sec for name, (_, sec) in done.items()}
 
 
-def _shift_table(B: int, T: int, gen) -> "torch.Tensor":
+def _shift_table(B: int, M: int, T: int, gen) -> "torch.Tensor":
     """Random shifts in (-T, T), with the edge cases -(T-1), -5, 0, 3 and
     T-1 on every channel of the first five candidates."""
     import torch
 
-    shifts = torch.randint(-T + 1, T, (B, 7), generator=gen, dtype=torch.int32)
+    shifts = torch.randint(-T + 1, T, (B, M), generator=gen, dtype=torch.int32)
     for k, s in enumerate([-(T - 1), -5, 0, 3, T - 1][:B]):
         shifts[k] = s
     return shifts
@@ -327,11 +357,11 @@ def kernel_check_phase() -> None:
     import torch
 
     gen = torch.Generator().manual_seed(0)
-    for B, T in KERNEL_SHAPES:
-        mix = torch.randn(7, T, generator=gen).to(DEVICE)
-        shifts = _shift_table(B, T, gen).to(DEVICE)
+    for B, M, T in KERNEL_SHAPES:
+        mix = torch.randn(M, T, generator=gen).to(DEVICE)
+        shifts = _shift_table(B, M, T, gen).to(DEVICE)
         r = check_kernel(mix, shifts)
-        log(f"kernel check B={B} M=7 T={T}: equal; kernel_ms={r['ms']:.4f} "
+        log(f"kernel check B={B} M={M} T={T}: equal; kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f}")
 
@@ -614,7 +644,7 @@ def _read_results(folder: str) -> dict:
 def eval_phase() -> dict:
     """evaluate_dataset of the port over the dev scenes on both release
     experiments: serially with cuDNN's default algorithms (what the CLI
-    runs), then serially and with two lanes over every other scene with
+    runs), then serially and with two lanes over every fourth scene with
     deterministic cuDNN algorithms, whose results must be equal; checks
     and quality numbers."""
     import torch
@@ -660,7 +690,8 @@ def eval_phase() -> dict:
             forward_launches.append(roll_channels_batch_cuda.launches - before)
 
     JointPipeline.forward = counting_forward
-    lane_scenes = scenes[::2]
+    # every fourth scene: the retune phase's traced scenes among them
+    lane_scenes = scenes[::4]
 
     def recording_run(self, *args, **kwargs):
         results, st = real_run(self, *args, **kwargs)
@@ -956,11 +987,38 @@ def profile_phase(pipe, mix) -> dict:
 BF16_MARGIN_DB = 6.0
 
 
+def _bf16_check(label, card16, cpu16, card32) -> dict:
+    """Rows of the card's bfloat16 output against the CPU's bfloat16 and
+    the card's float32 (numpy arrays): the card's bfloat16 within
+    BF16_MARGIN_DB of the CPU bfloat16's own SI-SDR against float32."""
+    import numpy as np
+
+    from acousticswarms_speech_tpu_torch.utils.metrics import si_sdr
+
+    def sisdr_rows(a, b):
+        return [float(si_sdr(x, y)) for x, y in zip(a, b)]
+
+    got = sisdr_rows(card16, cpu16)
+    own = sisdr_rows(cpu16, card32)
+    card_own = sisdr_rows(card16, card32)
+    if not (np.isfinite(card16).all()
+            and min(got) >= min(own) - BF16_MARGIN_DB):
+        raise AssertionError(f"{label}: card bf16 vs CPU bf16 SI-SDR "
+                             f"{got}, CPU bf16 vs card f32 {own}")
+    log(f"bf16 {label}: card vs CPU bf16 SI-SDR min {min(got):.2f} dB "
+        f"(bound {min(own) - BF16_MARGIN_DB:.2f}); against the card's "
+        f"f32: CPU bf16 min {min(own):.2f} dB, card bf16 min "
+        f"{min(card_own):.2f} dB; max abs err card vs CPU bf16 "
+        f"{float(np.abs(card16 - cpu16).max()):.3e} (peak "
+        f"{float(np.abs(cpu16).max()):.4f})")
+    return {"card_vs_cpu_min_db": min(got), "cpu_bf16_vs_f32_min_db":
+            min(own), "card_bf16_vs_f32_min_db": min(card_own)}
+
+
 def _bf16_nets_check(pipe, pipe16, mix, fine_mix, fine_shifts, heads):
     """(a): SpotNet on 8 candidates of the fine sweep's rolled inputs and
     SepNet at the bench scene's heads, in bfloat16 on the card and on the
     CPU, against the card's float32."""
-    import numpy as np
     import torch
 
     from acousticswarms_speech_tpu_torch.models import load_release
@@ -969,27 +1027,6 @@ def _bf16_nets_check(pipe, pipe16, mix, fine_mix, fine_shifts, heads):
         roll_channels_batch_plain
     from acousticswarms_speech_tpu_torch.search.spotform import \
         SeparationInference
-    from acousticswarms_speech_tpu_torch.utils.metrics import si_sdr
-
-    def sisdr_rows(a, b):
-        return [float(si_sdr(x, y)) for x, y in zip(a, b)]
-
-    def check(label, card16, cpu16, card32):
-        got = sisdr_rows(card16, cpu16)
-        own = sisdr_rows(cpu16, card32)
-        card_own = sisdr_rows(card16, card32)
-        if not (np.isfinite(card16).all()
-                and min(got) >= min(own) - BF16_MARGIN_DB):
-            raise AssertionError(f"{label}: card bf16 vs CPU bf16 SI-SDR "
-                                 f"{got}, CPU bf16 vs card f32 {own}")
-        log(f"bf16 {label}: card vs CPU bf16 SI-SDR min {min(got):.2f} dB "
-            f"(bound {min(own) - BF16_MARGIN_DB:.2f}); against the card's "
-            f"f32: CPU bf16 min {min(own):.2f} dB, card bf16 min "
-            f"{min(card_own):.2f} dB; max abs err card vs CPU bf16 "
-            f"{float(np.abs(card16 - cpu16).max()):.3e} (peak "
-            f"{float(np.abs(cpu16).max()):.4f})")
-        return {"card_vs_cpu_min_db": min(got), "cpu_bf16_vs_f32_min_db":
-                min(own), "card_bf16_vs_f32_min_db": min(card_own)}
 
     out = {}
     x = torch.as_tensor(fine_mix, device=DEVICE)
@@ -1003,17 +1040,17 @@ def _bf16_nets_check(pipe, pipe16, mix, fine_mix, fine_shifts, heads):
         card32 = pipe.spot_model.model(normed, w.to(DEVICE))
         cpu16 = spot_cpu(normed.cpu().bfloat16(), w.bfloat16())
     del spot_cpu
-    out["spotnet"] = check(f"SpotNet (B=8, T={fine_mix.shape[1]})",
-                           card16.float().cpu().numpy()[:, 0],
-                           cpu16.float().numpy()[:, 0],
-                           card32.cpu().numpy()[:, 0])
+    out["spotnet"] = _bf16_check(f"SpotNet (B=8, T={fine_mix.shape[1]})",
+                                 card16.float().cpu().numpy()[:, 0],
+                                 cpu16.float().numpy()[:, 0],
+                                 card32.cpu().numpy()[:, 0])
     offs = [p[0].sample_offset for p in heads]
     cpu_sep = SeparationInference(load_release(SEP_DIR, "cpu"), use_bf16=True,
                                   device="cpu")
-    out["sepnet"] = check(f"SepNet ({len(offs)} heads, T={mix.shape[1]})",
-                          pipe16.sep_model.infer_sample(mix, offs),
-                          cpu_sep.infer_sample(mix, offs),
-                          pipe.sep_model.infer_sample(mix, offs))
+    out["sepnet"] = _bf16_check(
+        f"SepNet ({len(offs)} heads, T={mix.shape[1]})",
+        pipe16.sep_model.infer_sample(mix, offs),
+        cpu_sep.infer_sample(mix, offs), pipe.sep_model.infer_sample(mix, offs))
     return out
 
 
@@ -1183,7 +1220,10 @@ def bf16_eval_phase(evaluation: dict) -> dict:
     folder = os.path.join(OUT_DIR, "eval_serial_bf16")
     for d in (data, folder):
         shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(DEV_SET, data)
+    dev = sorted(d for d in os.listdir(DEV_SET)
+                 if os.path.isdir(os.path.join(DEV_SET, d)))
+    for scene in dev[::2]:  # every other scene, 8 of the 16
+        shutil.copytree(os.path.join(DEV_SET, scene), os.path.join(data, scene))
     t0 = time.time()
     scenes = precompute(data)
     precompute_s = time.time() - t0
@@ -1253,7 +1293,8 @@ def bf16_eval_phase(evaluation: dict) -> dict:
     return out
 
 
-# The retune phase's traced pass: 4 of the 16 dev scenes.
+# The retune phase's traced pass: 4 of the 16 dev scenes, those of the
+# evaluation phase's deterministic passes.
 RETUNE_SCENES = ["00000", "00004", "00008", "00012"]
 # Result fields exempt when the traced pass is held equal to the untraced
 # deterministic pass: the stage times (host clock).  Tracing adds no field
@@ -1712,13 +1753,61 @@ def _generate(voices, root, label, seed, extra, device):
     return sec, premixes[0]
 
 
+def _render_on_both(voices, root, label, seed, extra) -> dict:
+    """Scene `label` rendered with the room on the card and again on the
+    CPU: premix within RIR_TOL of its peak, metadata.json equal, one WAV
+    per mic and talker, WAVs within 1 LSB."""
+    import numpy as np
+
+    from acousticswarms_speech_tpu_torch.data import roomsim
+
+    card_s, card = _generate(voices, root, label, seed, extra, DEVICE)
+    cpu_s, cpu = _generate(voices, root, label, seed, extra, "cpu")
+    if card.shape != cpu.shape or not np.isfinite(card).all():
+        raise AssertionError(f"{label}: premix {card.shape} vs {cpu.shape}")
+    err = float(np.abs(card - cpu).max())
+    peak = float(np.abs(cpu).max())
+    if not err <= RIR_TOL * peak:
+        raise AssertionError(f"{label}: premix card vs CPU {err} "
+                             f"(peak {peak})")
+    dirs = [os.path.join(root, d, label, "00000") for d in (DEVICE, "cpu")]
+    metas = []
+    for d in dirs:
+        with open(os.path.join(d, "metadata.json")) as f:
+            metas.append(json.load(f))
+    if metas[0] != metas[1]:
+        raise AssertionError(f"{label}: metadata.json differs")
+    meta = metas[1]
+    mics = sum(k.startswith("mic") for k in meta)
+    talkers = sum(k.startswith("voice") for k in meta)
+    wavs = sorted(f for f in os.listdir(dirs[1]) if f.endswith(".wav"))
+    if mics != extra.get("n_mics", 7) or len(wavs) != mics + talkers:
+        raise AssertionError(f"{label}: {mics} mics, {wavs}")
+    lsb = max(int(np.abs(_pcm(os.path.join(dirs[0], w)).astype(np.int32)
+                         - _pcm(os.path.join(dirs[1], w))).max())
+              for w in wavs)
+    if lsb > 1:
+        raise AssertionError(f"{label}: WAVs differ by {lsb} LSB")
+    order = (roomsim.inverse_sabine(meta["rt60"], meta["Room_dimensions"])
+             [1] if "rt60" in meta else 10)
+    out = {"card_s": card_s, "cpu_s": cpu_s, "premix_max_abs_err": err,
+           "premix_peak": peak, "wav_max_lsb": lsb,
+           "premix_shape": list(card.shape), "max_order": min(order, 150),
+           "rt60": meta.get("rt60"), "absorption": meta["absorption"]}
+    log(f"generation {label}: {mics} mics, {talkers} talkers, "
+        f"{out['max_order']} reflections max (rt60 {meta.get('rt60')}, "
+        f"absorption {meta['absorption']:.3f}); card {card_s:.3f}s, CPU "
+        f"{cpu_s:.3f}s per scene; premix {tuple(card.shape)} card vs CPU max "
+        f"abs err {err:.3e} (peak {peak:.4f}); metadata.json equal; WAVs "
+        f"within {lsb} LSB")
+    return out
+
+
 def generation_phase() -> dict:
     """A seeded voice bank, then each scene of GEN_SCENES rendered with the
     room on the card and again on the CPU: premix, metadata.json and WAVs
     compared."""
-    import numpy as np
-
-    from acousticswarms_speech_tpu_torch.data import roomsim, voicegen
+    from acousticswarms_speech_tpu_torch.data import voicegen
 
     root = os.path.join(OUT_DIR, "generation")
     shutil.rmtree(root, ignore_errors=True)
@@ -1729,47 +1818,8 @@ def generation_phase() -> dict:
     log(f"generation: voice bank (6 speakers x 2 utterances of 3 s) in "
         f"{time.time() - t0:.2f}s")
     voices = [os.path.join(bank, d) for d in sorted(os.listdir(bank))]
-    out = {}
-    for label, seed, extra in GEN_SCENES:
-        card_s, card = _generate(voices, root, label, seed, extra, DEVICE)
-        cpu_s, cpu = _generate(voices, root, label, seed, extra, "cpu")
-        if card.shape != cpu.shape or not np.isfinite(card).all():
-            raise AssertionError(f"{label}: premix {card.shape} vs {cpu.shape}")
-        err = float(np.abs(card - cpu).max())
-        peak = float(np.abs(cpu).max())
-        if not err <= RIR_TOL * peak:
-            raise AssertionError(f"{label}: premix card vs CPU {err} "
-                                 f"(peak {peak})")
-        dirs = [os.path.join(root, d, label, "00000") for d in (DEVICE, "cpu")]
-        metas = []
-        for d in dirs:
-            with open(os.path.join(d, "metadata.json")) as f:
-                metas.append(json.load(f))
-        if metas[0] != metas[1]:
-            raise AssertionError(f"{label}: metadata.json differs")
-        wavs = sorted(f for f in os.listdir(dirs[1]) if f.endswith(".wav"))
-        if len(wavs) != 10:  # 7 mixtures, 3 GT images
-            raise AssertionError(f"{label}: {wavs}")
-        lsb = max(int(np.abs(_pcm(os.path.join(dirs[0], w)).astype(np.int32)
-                             - _pcm(os.path.join(dirs[1], w))).max())
-                  for w in wavs)
-        if lsb > 1:
-            raise AssertionError(f"{label}: WAVs differ by {lsb} LSB")
-        meta = metas[1]
-        order = (roomsim.inverse_sabine(meta["rt60"], meta["Room_dimensions"])
-                 [1] if "rt60" in meta else 10)
-        out[label] = {"card_s": card_s, "cpu_s": cpu_s, "premix_max_abs_err":
-                      err, "premix_peak": peak, "wav_max_lsb": lsb,
-                      "premix_shape": list(card.shape),
-                      "max_order": min(order, 150),
-                      "rt60": meta.get("rt60"),
-                      "absorption": meta["absorption"]}
-        log(f"generation {label}: {out[label]['max_order']} reflections max "
-            f"(rt60 {meta.get('rt60')}, absorption {meta['absorption']:.3f}); "
-            f"card {card_s:.3f}s, CPU {cpu_s:.3f}s per scene; premix "
-            f"{tuple(card.shape)} card vs CPU max abs err {err:.3e} (peak "
-            f"{peak:.4f}); metadata.json equal; WAVs within {lsb} LSB")
-    return out
+    return {label: _render_on_both(voices, root, label, seed, extra)
+            for label, seed, extra in GEN_SCENES}
 
 
 def _threshold_margin(engine, offsets) -> float:
@@ -1993,6 +2043,470 @@ def loader_phase(build_s: dict) -> dict:
     return out
 
 
+# The 10-mic configuration (BASELINE.json's stretch configuration, "10+
+# mics"): scenes rendered on the card, and both release descriptions at full
+# width with n_mics = 10 and weights drawn from seeds.  No 10-mic weights
+# exist, so its heads and quality figures measure nothing but the path.
+MANY_MICS = 10
+# (label, seed, seconds), 3 talkers each: two scenes for the evaluation and
+# the forwards, and one for streaming, cut from 6 s to 1 s (two chunks): the
+# seeded networks make ~1150 spot calls per chunk, 9.2 s each on an H100.
+MANY_SCENES = [("m10_a", 11, 3.0), ("m10_b", 12, 3.0), ("m10_stream", 13, 1.0)]
+MANY_SEEDS = {"speech_localization": 10, "speech_separation": 11}
+# forward_streaming's chunks, as tests/test_torch_pipeline.py streams
+STREAM_CHUNK, STREAM_OVERLAP = 28000, 8000
+# The CPU tests' narrow networks at 10 mics (tests/test_torch_many_mics.py),
+# on 0.5 s of a scene with a 0.25 s selection crop and a 0.1 m grid.
+NARROW_SPOT = dict(channels=8, encoder_channels=32, residual_layers=1,
+                   num_head=2, ffw_dim=16, num_transformer_layers=1)
+NARROW_SEP = dict(max_speakers=5, channels=8, encoder_channels=32,
+                  residual_layers=1, num_head=2, ffw_dim=16,
+                  bottleneck_layers=1, bottleneck_ksize=7)
+NARROW_SLICE_S, NARROW_CROP_S, NARROW_GRID = 0.5, 0.25, 0.1
+NARROW_SISDR_DB = 30.0  # card against CPU audio, as the CPU tests hold
+NARROW_CPU_THREADS = 4  # the CPU runs', in a child beside the card's work
+# bfloat16 at 10 (SpotNet) and 20 (SepNet) input channels, card against the
+# CPU: SpotNet on 2 candidates of 1 s of the first scene, SepNet on two
+# speakers over 0.5 s of it, at TDoA offsets from a seed.
+MANY_BF16_SPOT_S, MANY_BF16_SEP_S = 1.0, 0.5
+
+
+def _random_experiment(name: str, seed: int, root: str) -> str:
+    """<root>/<name>_m10: the release description of `name` with n_mics =
+    MANY_MICS, and float16 release weights (the layout of
+    scripts/export_release) that init_model draws from a torch.Generator
+    seeded with `seed`."""
+    from acousticswarms_speech_tpu_torch.models import create_model, init_model
+    from acousticswarms_speech_tpu_torch.models.msgpack_writer import \
+        write_msgpack
+    from acousticswarms_speech_tpu_torch.scripts.export_release import \
+        _float16_sorted
+    from acousticswarms_speech_tpu_torch.training.checkpoints import \
+        params_tree
+
+    with open(os.path.join(REPO, "experiments", name, "description.json")) as f:
+        desc = json.load(f)
+    for key in ("model_params", "train_set_params", "test_set_params"):
+        desc[key]["n_mics"] = MANY_MICS
+    model = init_model(create_model(desc["model_name"], desc["model_params"]),
+                       seed=seed)
+    exp = os.path.join(root, f"{name}_m{MANY_MICS}")
+    os.makedirs(os.path.join(exp, "release"))
+    with open(os.path.join(exp, "description.json"), "w") as f:
+        json.dump(desc, f, indent=4)
+    write_msgpack(os.path.join(exp, "release", "params_f16.msgpack"),
+                  _float16_sorted(params_tree(model.state_dict())))
+    return exp
+
+
+def _head_positions(patches):
+    import numpy as np
+
+    return np.array([np.asarray(p[0].center_pos())[:2] for p in patches])
+
+
+def _narrow_forward(scene_dir: str, device: str, out_path: str) -> None:
+    """JointPipeline.forward of the narrow 10-mic networks (weights from
+    seeds 20 and 21) on NARROW_SLICE_S of a scene, after its first
+    NARROW_SLICE_S, on `device`; writes the heads' centres, the audio, the
+    spot calls and the seconds to `out_path` (npz)."""
+    import numpy as np
+
+    from acousticswarms_speech_tpu_torch.constants import FS
+    from acousticswarms_speech_tpu_torch.models import (SepNet, SpotNet,
+                                                        init_model)
+    from acousticswarms_speech_tpu_torch.pipeline.evaluate import (
+        get_items, preprocess_metadata)
+    from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
+
+    metadata, mix, _ = get_items(scene_dir)
+    _, mic_pos, _, _, _, roi = preprocess_metadata(metadata)
+    n = int(NARROW_SLICE_S * FS)
+    seg = np.ascontiguousarray(mix[:, n:2 * n])
+    pipe = JointPipeline(
+        init_model(SpotNet(n_mics=MANY_MICS, **NARROW_SPOT), seed=20),
+        init_model(SepNet(n_mics=MANY_MICS, **NARROW_SEP), seed=21),
+        device=device, sweep_crop_seconds=NARROW_CROP_S)
+    pipe.setup(mic_pos, roi, grid_size=NARROW_GRID)
+    t0 = time.time()
+    patches, audio_loc, audio, *_ = pipe.forward(seg)
+    np.savez(out_path, heads=_head_positions(patches), audio=np.asarray(audio),
+             audio_loc=np.asarray(audio_loc), calls=pipe.spot_model.calls,
+             seconds=time.time() - t0)
+
+
+def _bf16_nets(exps: dict, scene_dir: str, device: str, out_path: str,
+               with_f32: bool = False) -> None:
+    """The 10-mic SpotNet (window one-hot [1, 0]) on 2 candidates rolled by
+    seeded shifts over MANY_BF16_SPOT_S of a scene, after its first
+    NARROW_SLICE_S, and SepNet on two speakers at seeded offsets over
+    MANY_BF16_SEP_S of it, both in bfloat16 on `device` (and in float32
+    with `with_f32`); writes the outputs to `out_path` (npz)."""
+    import numpy as np
+    import torch
+
+    from acousticswarms_speech_tpu_torch.constants import FS
+    from acousticswarms_speech_tpu_torch.models import load_release
+    from acousticswarms_speech_tpu_torch.models.common import normalize_input
+    from acousticswarms_speech_tpu_torch.ops.shift import \
+        roll_channels_batch_plain
+    from acousticswarms_speech_tpu_torch.pipeline.evaluate import get_items
+    from acousticswarms_speech_tpu_torch.search.spotform import \
+        SeparationInference
+
+    _, mix, _ = get_items(scene_dir)
+    n = int(NARROW_SLICE_S * FS)
+    rng = np.random.default_rng(30)
+    shifts = rng.integers(-20, 20, size=(2, MANY_MICS)).astype(np.int32)
+    shifts[:, 0] = 0
+    seg = np.ascontiguousarray(mix[:, n:n + int(MANY_BF16_SPOT_S * FS)])
+    normed, _, _ = normalize_input(roll_channels_batch_plain(
+        torch.from_numpy(seg), torch.from_numpy(shifts)))
+    w = torch.tensor([[1.0, 0.0]]).expand(len(shifts), 2)
+    offsets = [rng.integers(-20, 20, MANY_MICS - 1).astype(float)
+               for _ in range(2)]
+    sep_mix = np.ascontiguousarray(mix[:, n:n + int(MANY_BF16_SEP_S * FS)])
+    res = {}
+    for key, dtype in (("bf16", torch.bfloat16),
+                       ("f32", torch.float32))[:2 if with_f32 else 1]:
+        spot = load_release(exps["speech_localization"], device, dtype)
+        with torch.no_grad():
+            res[f"spot_{key}"] = spot(normed.to(device, dtype), w.to(
+                device, dtype)).float().cpu().numpy()[:, 0]
+        del spot
+        sep = SeparationInference(load_release(exps["speech_separation"],
+                                               device),
+                                  use_bf16=key == "bf16", device=device)
+        res[f"sep_{key}"] = sep.infer_sample(sep_mix, offsets)
+        del sep
+    np.savez(out_path, **res)
+
+
+def _cpu_child(exps: dict, scene_dir: str, root: str):
+    """A child process running, on the CPU, _narrow_forward and then
+    _bf16_nets on the first scene (narrow_cpu.npz, bf16_cpu.npz)."""
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import torch; "
+            f"torch.set_num_threads({NARROW_CPU_THREADS}); import chip_smoke; "
+            f"chip_smoke._narrow_forward({scene_dir!r}, 'cpu', "
+            f"{os.path.join(root, 'narrow_cpu.npz')!r}); "
+            f"chip_smoke._bf16_nets({exps!r}, {scene_dir!r}, 'cpu', "
+            f"{os.path.join(root, 'bf16_cpu.npz')!r})")
+    with open(os.path.join(root, "cpu_child.log"), "w") as f:
+        return subprocess.Popen([sys.executable, "-c", code], cwd=REPO,
+                                stdout=f, stderr=subprocess.STDOUT,
+                                stdin=subprocess.DEVNULL)
+
+
+def _narrow_card_vs_cpu(drive, scene_dir: str, root: str, child) -> dict:
+    """The narrow networks on the card with deterministic cuDNN, beside the
+    child's CPU run of the same: the same heads within the grid, audio at
+    >= NARROW_SISDR_DB."""
+    import numpy as np
+    import torch
+
+    from acousticswarms_speech_tpu_torch.utils.metrics import si_sdr
+
+    card_path = os.path.join(root, "narrow_card.npz")
+    torch.backends.cudnn.deterministic = True
+    try:
+        drive("narrow", lambda: _narrow_forward(scene_dir, DEVICE, card_path))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    t0 = time.time()
+    code = child.wait(timeout=CHILD_TIMEOUT_S)
+    waited = time.time() - t0
+    if code != 0:
+        with open(os.path.join(root, "cpu_child.log")) as f:
+            print(f.read()[-4000:], flush=True)
+        raise AssertionError(f"many_mics CPU child exited {code}")
+    card = np.load(card_path)
+    cpu = np.load(os.path.join(root, "narrow_cpu.npz"))
+    faults, dist, sisdr = [], math.nan, [math.nan]
+    if card["heads"].shape != cpu["heads"].shape or not len(cpu["heads"]):
+        faults.append(f"{len(card['heads'])} heads on the card, "
+                      f"{len(cpu['heads'])} on the CPU")
+    else:
+        dist = float(np.abs(card["heads"] - cpu["heads"]).max())
+        sisdr = [float(si_sdr(a, b)) for key in ("audio", "audio_loc")
+                 for a, b in zip(card[key], cpu[key])]
+        if dist > NARROW_GRID or min(sisdr) < NARROW_SISDR_DB:
+            faults.append(f"heads {dist:.3f} m apart, audio SI-SDR {sisdr}")
+    out = {"heads": len(cpu["heads"]), "max_center_dist_m": dist,
+           "min_sisdr_db": min(sisdr), "spot_calls_card": int(card["calls"]),
+           "spot_calls_cpu": int(cpu["calls"]),
+           "card_s": float(card["seconds"]), "cpu_s": float(cpu["seconds"]),
+           "cpu_waited_s": waited}
+    log(f"many_mics narrow networks ({NARROW_SLICE_S} s, crop "
+        f"{NARROW_CROP_S} s, grid {NARROW_GRID} m): {len(card['heads'])} heads "
+        f"on the card (deterministic cuDNN, forward {out['card_s']:.2f}s) and "
+        f"{len(cpu['heads'])} on the CPU ({NARROW_CPU_THREADS} threads in a "
+        f"child, forward {out['cpu_s']:.2f}s, waited {waited:.2f}s), centres "
+        f"within {dist:.4f} m; audio SI-SDR card vs CPU min {min(sisdr):.2f} "
+        f"dB; spot calls {out['spot_calls_card']} and {out['spot_calls_cpu']}")
+    if faults:
+        raise AssertionError(f"many_mics narrow card vs CPU: {faults}")
+    return out
+
+
+def many_mics_phase() -> dict:
+    """The 10-mic configuration on the card (see the module docstring):
+    scenes, full-width networks, evaluation (whose first scene gives the
+    float32 forward), the bfloat16 forward, streaming, and the narrow
+    networks card against CPU (the CPU run in a child process beside the
+    rest).  Every driven step counts the roll kernel's launches (set to 0
+    just before it, read just after) and records the inputs of each roll;
+    the kernel is held against its plain version on all of them after."""
+    import numpy as np
+    import torch
+
+    from acousticswarms_speech_tpu_torch.data import voicegen
+    from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
+        roll_channels_batch_cuda
+    from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
+
+    root = os.path.join(OUT_DIR, "many_mics")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"launches": {}, "seconds": {}}
+    rolls = []
+
+    def drive(name, fn):
+        """fn() with the launch count set to 0 just before and read just
+        after; returns (result, seconds)."""
+        with recording_rolls() as got:
+            roll_channels_batch_cuda.launches = 0
+            sync()
+            t0 = time.time()
+            result = fn()
+            sync()
+            sec = time.time() - t0
+            n = roll_channels_batch_cuda.launches
+        if n != len(got):
+            raise AssertionError(f"many_mics {name}: {n} launches for "
+                                 f"{len(got)} rolls")
+        out["launches"][name] = n
+        out["seconds"][name] = sec
+        rolls.extend(got)
+        return result, sec
+
+    def memory():
+        return (f"peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+    # 1. scenes; the narrow networks' CPU run starts on the first at once
+    t0 = time.time()
+    bank = os.path.join(root, "voices")
+    voicegen.generate_voice_bank(bank, n_speakers=6, clips_per_speaker=2,
+                                 duration=3.0, seed=0)
+    voices = [os.path.join(bank, d) for d in sorted(os.listdir(bank))]
+    out["generation"] = {
+        label: _render_on_both(voices, root, label, seed,
+                               {"n_mics": MANY_MICS, "duration": sec})
+        for label, seed, sec in MANY_SCENES}
+    scene = {label: os.path.join(root, DEVICE, label, "00000")
+             for label, _, _ in MANY_SCENES}
+    out["seconds"]["scenes"] = time.time() - t0
+
+    # 2. the networks at full width, written as experiments; the CPU's
+    # share of steps 4 and 6 starts in a child at once
+    t0 = time.time()
+    exps = {name: _random_experiment(name, seed,
+                                     os.path.join(root, "experiments"))
+            for name, seed in MANY_SEEDS.items()}
+    child = _cpu_child(exps, scene["m10_a"], root)
+    try:
+        pipe = JointPipeline.from_experiments(exps["speech_localization"],
+                                              exps["speech_separation"],
+                                              device=DEVICE)
+        out["seconds"]["networks"] = time.time() - t0
+        log(f"many_mics: experiments "
+            f"{[os.path.relpath(e, REPO) for e in exps.values()]} written and "
+            f"loaded in {out['seconds']['networks']:.2f}s: SpotNet "
+            f"{sum(p.numel() for p in pipe.spot_model.model.parameters())} "
+            f"params, SepNet "
+            f"{sum(p.numel() for p in pipe.sep_model.model.parameters())} "
+            f"params, {MANY_MICS} mics")
+        out.update(_many_mics_driven(drive, pipe, scene, root, memory))
+        del pipe
+        _bf16_nets(exps, scene["m10_a"], DEVICE,
+                   os.path.join(root, "bf16_card.npz"), with_f32=True)
+        # 6. the narrow networks, card against CPU
+        out["narrow"] = _narrow_card_vs_cpu(drive, scene["m10_a"], root, child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    # 4 (continued). bfloat16 at 10 and 20 input channels, card against CPU
+    card = np.load(os.path.join(root, "bf16_card.npz"))
+    cpu = np.load(os.path.join(root, "bf16_cpu.npz"))
+    out["bf16_nets"] = {
+        "spotnet": _bf16_check(
+            f"10-mic SpotNet (B=2, T={card['spot_bf16'].shape[-1]})",
+            card["spot_bf16"], cpu["spot_bf16"], card["spot_f32"]),
+        "sepnet": _bf16_check(
+            f"10-mic SepNet (2 speakers, T={card['sep_bf16'].shape[-1]})",
+            card["sep_bf16"], cpu["sep_bf16"], card["sep_f32"])}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    total = sum(out["launches"].values())
+    if total <= 0:
+        raise AssertionError("the 10-mic path never launched the roll kernel")
+    hold_rolls(rolls, "many_mics")
+    m, s = max(rolls, key=lambda r: r[1].shape[0] * r[0].shape[1])
+    big = check_kernel(m.contiguous(), s.contiguous())
+    out["largest_launch"] = {k: big[k] for k in ("B", "M", "T", "ms",
+                                                 "plain_ms", "library_ms",
+                                                 "bound_ms")}
+    out["roll_launches"] = total
+    log(f"many_mics: roll kernel launches {json.dumps(out['launches'])} "
+        f"({total} in all), each equal to plain; largest launch "
+        f"B={big['B']} M={big['M']} T={big['T']}: kernel_ms={big['ms']:.4f} "
+        f"plain_ms={big['plain_ms']:.4f} library_ms={big['library_ms']:.4f} "
+        f"bound_ms={big['bound_ms']:.4f}; {memory()}")
+    return out
+
+
+def _many_mics_driven(drive, pipe, scene, root, memory) -> dict:
+    """Steps 3-5 of the 10-mic phase on the full-width pipeline: the
+    evaluation of the two 3 s scenes, whose first scene's set-up and
+    forward are the float32 forward's figures; the bfloat16 forward of that
+    scene against them; streaming."""
+    import numpy as np
+
+    from acousticswarms_speech_tpu_torch.pipeline.analyze import analyze
+    from acousticswarms_speech_tpu_torch.pipeline.evaluate import (
+        evaluate_dataset, get_items, preprocess_metadata)
+    from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
+    from acousticswarms_speech_tpu_torch.utils.metrics import si_sdr
+
+    out = {}
+    # 3. evaluation over the two 3 s scenes; the first scene's set-up and
+    # forward are caught on their way through
+    data = os.path.join(root, "dataset")
+    folder = os.path.join(root, "eval")
+    for k, label in enumerate(("m10_a", "m10_b")):
+        shutil.copytree(scene[label], os.path.join(data, f"{k:05d}"))
+    first = {}
+
+    def setup(*args, **kwargs):
+        t0 = time.time()
+        JointPipeline.setup(pipe, *args, **kwargs)
+        if "setup_s" not in first:
+            srp = pipe.mic_processor.srp.computer
+            first.update(setup_s=time.time() - t0, args=(args, kwargs),
+                         grid_points=int(pipe.mic_processor.geom.num_clusters),
+                         table_bytes=srp.steer_re.nbytes + srp.steer_im.nbytes)
+
+    def forward(mix_data, *args, **kwargs):
+        calls = pipe.spot_model.calls
+        t0 = time.time()
+        res = JointPipeline.forward(pipe, mix_data, *args, **kwargs)
+        if "forward" not in first:
+            sync()
+            first.update(forward=res, wall_s=time.time() - t0, mix=mix_data,
+                         metrics=dict(pipe.stage_metrics(),
+                                      spotform_calls=pipe.spot_model.calls
+                                      - calls))
+        return res
+
+    pipe.setup, pipe.forward = setup, forward
+    try:
+        counts, eval_s = drive("evaluate", lambda: evaluate_dataset(
+            pipe, data, results_folder=folder))
+    finally:
+        del pipe.setup, pipe.forward
+    results = _read_results(folder)
+    if sorted(results) != ["result_00000.json", "result_00001.json"] or \
+            not all(map(_finite_numbers, results.values())):
+        raise AssertionError(f"many_mics evaluation: {sorted(results)}")
+    summ = analyze(folder, verbose=False)
+    p, r = summ["precision"], summ["recall"]
+    out["evaluate"] = {"counts": counts, "s": eval_s, "precision": p,
+                       "recall": r, "f1": 2 * p * r / (p + r) if p + r else 0.0,
+                       "sisdri_mean": summ["sisdri_mean"],
+                       "spot_calls": [res["spot_times"] for res in
+                                      results.values()]}
+    patches, audio_loc, audio = first["forward"][:3]
+    mix = first["mix"]
+    audio, audio_loc = np.asarray(audio), np.asarray(audio_loc)
+    if audio.shape != (len(patches), mix.shape[1]) or audio_loc.shape != \
+            audio.shape or not np.isfinite(audio).all():
+        raise AssertionError(f"many_mics forward: {len(patches)} heads, audio "
+                             f"{audio.shape}")
+    heads = _head_positions(patches)
+    log(f"many_mics forward (float32, the evaluation's first scene, "
+        f"{mix.shape}): setup {first['setup_s']:.2f}s (G="
+        f"{first['grid_points']}, SRP steering table "
+        f"{first['table_bytes'] / 1e9:.3f} GB), forward {first['wall_s']:.3f}s;"
+        f" stage_metrics {json.dumps(first['metrics'])}; {len(patches)} heads "
+        f"at {np.round(heads, 3).tolist()}")
+    log(f"many_mics evaluation of 2 scenes (untrained weights: no quality "
+        f"figure): {eval_s:.2f}s, counts {counts}; P {p:.4f} R {r:.4f} F1 "
+        f"{out['evaluate']['f1']:.4f}; SI-SDRi {summ['sisdri_mean']} dB; "
+        f"spot calls {out['evaluate']['spot_calls']}; {memory()}")
+
+    # 4. the bfloat16 forward of the first scene
+    pipe16 = JointPipeline(pipe.spot_model.model, pipe.sep_model.model,
+                           device=DEVICE, use_bf16=True)
+    args, kwargs = first["args"]
+    pipe16.setup(*args, **kwargs)
+    (patches16, _, audio16, *_), wall16 = drive("forward_bf16",
+                                                lambda: pipe16.forward(mix))
+    audio16 = np.asarray(audio16)
+    if audio16.shape != (len(patches16), mix.shape[1]) or \
+            not np.isfinite(audio16).all():
+        raise AssertionError(f"many_mics bf16 forward: {len(patches16)} "
+                             f"heads, audio {audio16.shape}")
+    matched = []
+    for k, pos in enumerate(_head_positions(patches16) if len(heads) else []):
+        d = np.linalg.norm(heads - pos, axis=1)
+        j = int(d.argmin())
+        matched.append((k, j, float(d[j]), float(si_sdr(audio16[k], audio[j]))))
+    metrics16 = pipe16.stage_metrics()
+    log(f"many_mics forward (bfloat16): {wall16:.3f}s; stage_metrics "
+        f"{json.dumps(metrics16)}; {len(patches16)} heads beside "
+        f"{len(patches)} in float32; matched (bf16 head, f32 head, distance "
+        f"m, SI-SDR of bf16 audio against f32 dB): "
+        + "; ".join(f"({k}, {j}, {d:.3f}, {s:.2f})" for k, j, d, s in matched))
+    del pipe16
+    out["forward"] = {
+        **{k: first[k] for k in ("setup_s", "grid_points", "table_bytes",
+                                 "wall_s")},
+        "heads": len(patches), **first["metrics"], "bf16_wall_s": wall16,
+        "bf16_heads": len(patches16),
+        "bf16_spotform_calls": metrics16["spotform_calls"],
+        "bf16_matched": matched}
+
+    # 5. streaming
+    metadata, long_mix, _ = get_items(scene["m10_stream"])
+    _, mic_pos, _, _, _, roi = preprocess_metadata(metadata)
+    t0 = time.time()
+    pipe.setup(mic_pos, roi)
+    setup_s = time.time() - t0
+    pipe.spot_model.calls = 0
+    (tracks, per_chunk), stream_s = drive(
+        "streaming", lambda: pipe.forward_streaming(
+            long_mix, chunk_samples=STREAM_CHUNK, overlap=STREAM_OVERLAP))
+    T = long_mix.shape[1]
+    n_chunks = len(per_chunk)
+    if n_chunks != -(-(T - STREAM_OVERLAP) // (STREAM_CHUNK - STREAM_OVERLAP)) \
+            or any(tr["audio"].shape != (T,) or not np.isfinite(tr["audio"]).all()
+                   or not set(tr["chunks"]) <= set(range(n_chunks))
+                   for tr in tracks):
+        raise AssertionError(f"many_mics streaming: {n_chunks} chunks, "
+                             f"{len(tracks)} tracks")
+    out["streaming"] = {"setup_s": setup_s, "s": stream_s, "chunks": n_chunks,
+                        "tracks": len(tracks),
+                        "spot_calls": pipe.spot_model.calls}
+    log(f"many_mics streaming ({long_mix.shape}, chunks of {STREAM_CHUNK} "
+        f"with {STREAM_OVERLAP} overlap): setup {setup_s:.2f}s, "
+        f"{stream_s:.2f}s for {n_chunks} chunks; {len(tracks)} tracks over "
+        f"chunks {[sorted(tr['chunks']) for tr in tracks]}; spot calls "
+        f"{pipe.spot_model.calls}; {memory()}")
+    return out
+
+
 MESH_TIMEOUT_S = 180  # each rank's process-group timeout
 MESH_DEADLINE_S = 240  # each launch's
 SWEEP_RTOL = 1e-4  # powers: rows run in other chunk batches on cuDNN
@@ -2202,6 +2716,9 @@ def main() -> int:
         bench = bench_phase(bf16)
         log(f"bench phase {time.time() - t0:.2f}s")
         t0 = time.time()
+        many_mics = many_mics_phase()
+        log(f"many_mics phase {time.time() - t0:.2f}s: {json.dumps(many_mics)}")
+        t0 = time.time()
         evaluation = eval_phase()
         log(f"evaluation phase {time.time() - t0:.2f}s: "
             f"{json.dumps(evaluation)}")
@@ -2238,6 +2755,7 @@ def main() -> int:
             "joint_forward_profiled": profile["roll_launches"],
             "joint_forward_bf16": bf16["roll_launches"],
             "bench": bench["roll_launches"],
+            "many_mics": many_mics["roll_launches"],
             "evaluate_serial": evaluation["roll_launches_serial"],
             "evaluate_serial_deterministic":
                 evaluation["roll_launches_serial_deterministic"],
@@ -2255,6 +2773,7 @@ def main() -> int:
         kernel_row["max_abs_err"] = max(kernel_row["max_abs_err"],
                                         mesh["kernel_max_abs_err"])
         kernel_row["eval_largest_launch"] = evaluation["largest_launch"]
+        kernel_row["many_mics_largest_launch"] = many_mics["largest_launch"]
     except BaseException:
         traceback.print_exc()
         sys.stderr.flush()

@@ -33,21 +33,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _shifts(B, T, gen):
-    s = torch.randint(-T + 1, T, (B, 7), generator=gen, dtype=torch.int32)
+def _shifts(B, T, gen, M=7):
+    s = torch.randint(-T + 1, T, (B, M), generator=gen, dtype=torch.int32)
     for k, v in enumerate([-(T - 1), -5, 0, 3, T - 1][:B]):
         s[k] = v
     return s
 
 
+@pytest.mark.parametrize("M", [7, 10])
 @pytest.mark.parametrize("B,T", [(1, 1), (3, 5), (32, 72000), (37, 72000),
-                                 (5, 144000), (512, 72000), (4, 1023)])
-def test_roll_kernel_matches_plain(cuda, B, T):
+                                 (5, 144000), (512, 72000), (4, 1023),
+                                 (7000, 1024)])
+def test_roll_kernel_matches_plain(cuda, B, T, M):
     """Exact equality: the kernel copies samples.  T = 1023 and 5 take the
-    scalar-store path, the others the 16-byte one."""
-    gen = torch.Generator().manual_seed(B * 100003 + T)
-    mix = torch.randn(7, T, generator=gen).to(cuda)
-    shifts = _shifts(B, T, gen).to(cuda)
+    scalar-store path, the others the 16-byte one.  B = 7000 at M = 10 puts
+    70000 rows past the grid's y limit of 65535 (287 MB out), so blocks
+    walk more than one row."""
+    gen = torch.Generator().manual_seed(B * 100003 + T + M)
+    mix = torch.randn(M, T, generator=gen).to(cuda)
+    shifts = _shifts(B, T, gen, M).to(cuda)
     before = roll_kernel.roll_channels_batch_cuda.launches
     got = roll_channels_batch(mix, shifts)
     torch.cuda.synchronize()
@@ -99,3 +103,20 @@ def test_roll_kernel_counts_launches_and_runs_in_threads(cuda):
         th.join()
     assert not bad
     assert roll_kernel.roll_channels_batch_cuda.launches - before == 100
+
+
+def test_roll_ab_times_two_sources(cuda, tmp_path):
+    """scripts/roll_ab builds a second copy of the kernel's source, holds it
+    equal to the plain version and times both versions at each shape, twice
+    a round (one order, then the reverse)."""
+    import shutil
+
+    from acousticswarms_speech_tpu_torch.scripts import roll_ab
+
+    other = tmp_path / "copy.cu"
+    shutil.copy(roll_kernel.SOURCE, other)
+    res = roll_ab.compare({"current": roll_kernel.SOURCE, "copy": str(other)},
+                          [(37, 10, 4096)], rounds=2, reps=2)
+    times = res[(37, 10, 4096)]
+    assert sorted(times) == ["copy", "current"]
+    assert all(len(v) == 4 and min(v) > 0 for v in times.values())

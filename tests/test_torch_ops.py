@@ -19,27 +19,38 @@ from acousticswarms_speech_tpu_torch.ops import power, shift, similarity, srp
 T_ROLL = 1024
 
 
-def _shift_cases(rng, T):
-    """(name, (B, 7) int32 shifts): negative, zero, near +-T and random."""
+def _shift_cases(rng, T, M=7):
+    """(name, (B, M) int32 shifts): negative, zero, near +-T and random.
+    The fixed rows repeat their 7-mic pattern across M channels."""
+    def row(pattern):
+        return np.resize(np.array(pattern), M)
+
     return {
-        "random": rng.integers(-90, 90, (3, 7)),
-        "zero": np.zeros((2, 7)),
-        "negative": -rng.integers(1, T, (2, 7)),
-        "near_plus_T": np.array([[T - 1, T - 2, 1, 0, T - 1, 2, T - 3]] * 2),
-        "near_minus_T": np.array([[-(T - 1), -(T - 2), -1, 0, -(T - 1), -5,
-                                   -(T - 3)]] * 2),
-        "edges": np.array([[-(T - 1), -5, 0, 3, T - 1, 7, -7]]),
+        "random": rng.integers(-90, 90, (3, M)),
+        "zero": np.zeros((2, M)),
+        "negative": -rng.integers(1, T, (2, M)),
+        "near_plus_T": np.array([row([T - 1, T - 2, 1, 0, T - 1, 2, T - 3])] * 2),
+        "near_minus_T": np.array([row([-(T - 1), -(T - 2), -1, 0, -(T - 1), -5,
+                                       -(T - 3)])] * 2),
+        "edges": np.array([row([-(T - 1), -5, 0, 3, T - 1, 7, -7])]),
     }
 
 
-@pytest.mark.parametrize("case", ["random", "zero", "negative", "near_plus_T",
-                                  "near_minus_T", "edges"])
-def test_roll_plain_matches_jax_and_pallas(case):
+def _cases_by_mics(cases):
+    """(case, M) for M in 7 and 10; the 7-mic cases keep their plain ids."""
+    return ([pytest.param(c, 7, id=c) for c in cases]
+            + [pytest.param(c, 10, id=f"{c}-M10") for c in cases])
+
+
+@pytest.mark.parametrize("case,M", _cases_by_mics(
+    ["random", "zero", "negative", "near_plus_T", "near_minus_T", "edges"]))
+def test_roll_plain_matches_jax_and_pallas(case, M):
     """roll_channels_batch_plain equals the JAX gather roll and the Pallas
-    kernel in interpret mode exactly (a copy has no rounding)."""
+    kernel in interpret mode exactly (a copy has no rounding), at 7 and 10
+    mics."""
     rng = np.random.default_rng(7)
-    x = rng.normal(size=(7, T_ROLL)).astype(np.float32)
-    s = _shift_cases(rng, T_ROLL)[case].astype(np.int32)
+    x = rng.normal(size=(M, T_ROLL)).astype(np.float32)
+    s = _shift_cases(rng, T_ROLL, M)[case].astype(np.int32)
     got = shift.roll_channels_batch_plain(torch.from_numpy(x),
                                           torch.from_numpy(s)).numpy()
     want = np.asarray(jax_shift.roll_channels_batch(jnp.asarray(x),
@@ -65,12 +76,12 @@ def test_roll_cuda_wrapper_refuses_cpu_tensors():
                                  torch.zeros(2, 7, dtype=torch.int32))
 
 
-@pytest.mark.parametrize("case", ["random", "near_plus_T", "near_minus_T",
-                                  "edges"])
-def test_roll_zero_fill_matches_jax(case):
+@pytest.mark.parametrize("case,M", _cases_by_mics(
+    ["random", "near_plus_T", "near_minus_T", "edges"]))
+def test_roll_zero_fill_matches_jax(case, M):
     rng = np.random.default_rng(3)
-    x = rng.normal(size=(7, T_ROLL)).astype(np.float32)
-    s = _shift_cases(rng, T_ROLL)[case].astype(np.int32)
+    x = rng.normal(size=(M, T_ROLL)).astype(np.float32)
+    s = _shift_cases(rng, T_ROLL, M)[case].astype(np.int32)
     got = shift.roll_zero_fill_batch(torch.from_numpy(x),
                                      torch.from_numpy(s)).numpy()
     want = np.asarray(jax_shift.roll_zero_fill_batch(jnp.asarray(x),

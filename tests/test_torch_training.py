@@ -411,3 +411,36 @@ def test_train_cli_needs_a_card_without_jax(tmp_path):
     assert "raised: no CUDA device" in proc.stdout, proc.stdout
     assert "bad: []" in proc.stdout, proc.stdout
     assert not os.path.exists(os.path.join(exp, "checkpoints"))
+
+
+def test_train_timing_prints_like_jax(tmp_path, monkeypatch, capsys):
+    """ACOUSTIC_TRAIN_TIMING=1: a two-step epoch of each package's train()
+    (the narrow SepNet of the test above, two dev scenes, a print every
+    step) prints one line per step with the seconds spent fetching,
+    stepping and syncing since the last print, in the same format; without
+    the knob the port prints the plain line."""
+    import re
+
+    from acousticswarms_speech_tpu.training.train import train as jax_train
+
+    line = re.compile(r"Train Epoch 0 \[(\d+)\] Loss: -?\d+\.\d{6}"
+                      r"(  \(fetch \d+\.\ds step \d+\.\ds sync \d+\.\ds\))?$")
+
+    def step_lines(fn, root, timing):
+        monkeypatch.setenv("ACOUSTIC_TRAIN_TIMING", "1" if timing else "0")
+        exp, _ = _tiny_experiment(str(tmp_path / root), ["00000", "00001"])
+        capsys.readouterr()
+        fn(exp)
+        out = capsys.readouterr().out.splitlines()
+        return [(m[1], m[2] is not None) for m in (
+            line.match(ln) for ln in out if ln.startswith("Train Epoch"))]
+
+    want = step_lines(lambda e: jax_train(e, print_interval=1,
+                                          max_steps_per_epoch=2), "jax", True)
+    got = step_lines(lambda e: train(e, print_interval=1, max_steps_per_epoch=2,
+                                     device="cpu"), "port", True)
+    assert got == want == [("0", True), ("1", True)]
+    plain = step_lines(lambda e: train(e, print_interval=1,
+                                       max_steps_per_epoch=2, device="cpu"),
+                       "plain", False)
+    assert plain == [("0", False), ("1", False)]

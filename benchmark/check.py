@@ -1,0 +1,84 @@
+"""The comparison that decides `correct`: what the timed path produced for a
+mixture against what the plain reference works out again from the same
+inputs.
+
+Each number is the worst over the mixtures checked, and is held against
+its limit in the configuration's file (`limits`):
+- `srp_map_err`: the largest gap of the SRP map, over the map's peak;
+- `patches0_diff`: stage-0 patches (TDoA offsets and widths) that differ,
+  plus the difference of their counts (exact: limit 0);
+- `spot_calls_diff`: the difference of the candidates swept through
+  SpotNet, the sum of every sweep's decisions (exact: limit 0);
+- `heads_diff`: the difference of the head counts (exact: limit 0);
+- `head_offset_err`: the largest gap between a head's TDoA offsets and
+  those of the reference's head of the same rank (heads come in power
+  order), in samples; a head's position follows from its offsets;
+- `audio_loc_err`: the largest relative L2 gap of a head's sweep audio;
+- `audio_err`: the largest relative L2 gap of a head's separated audio.
+Where the two sides' shapes differ (maps of another size), a number reads
+NOT_COMPARABLE, far above any limit.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+NOT_COMPARABLE = 1e9
+NUMBERS = ("srp_map_err", "patches0_diff", "spot_calls_diff", "heads_diff",
+           "head_offset_err", "audio_loc_err", "audio_err")
+
+
+def heads_of(patches) -> list:
+    """The TDoA offsets (M-1,) of each head of the port's and the
+    reference's patch tuples."""
+    return [np.asarray(p[4]["localization_offset"], np.float64)
+            for p in patches]
+
+
+def _rel_l2(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    if a.shape != b.shape:
+        return NOT_COMPARABLE
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def compare(prog: dict, ref: dict) -> dict:
+    """The numbers of one mixture.  Both dicts hold `srp_map`, `patches0`
+    ((offsets, widths) pairs), `heads` (offsets),
+    `audio_loc`, `audio` (None without heads) and `spot_calls`."""
+    out = {}
+    pm, rm = np.asarray(prog["srp_map"]), np.asarray(ref["srp_map"])
+    out["srp_map_err"] = (
+        float(np.abs(pm.astype(np.float64) - rm).max()
+              / max(float(np.abs(rm).max()), 1e-30))
+        if pm.shape == rm.shape else NOT_COMPARABLE)
+    p0, r0 = prog["patches0"], ref["patches0"]
+    out["patches0_diff"] = NOT_COMPARABLE if p0 is None else abs(
+        len(p0) - len(r0)) + sum(
+        int(not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])))
+        for a, b in zip(p0, r0))
+    out["spot_calls_diff"] = abs(int(prog["spot_calls"])
+                                 - int(ref["spot_calls"]))
+    ph, rh = prog["heads"], ref["heads"]
+    out["heads_diff"] = abs(len(ph) - len(rh))
+    n = min(len(ph), len(rh))
+    out["head_offset_err"] = max(
+        [float(np.abs(ph[k] - rh[k]).max()) for k in range(n)],
+        default=0.0)
+    for key in ("audio_loc", "audio"):
+        a, b = prog[key], ref[key]
+        a = np.zeros((0, 1)) if a is None else np.asarray(a)
+        b = np.zeros((0, 1)) if b is None else np.asarray(b)
+        out[f"{key}_err"] = max(
+            [_rel_l2(a[k], b[k]) for k in range(min(n, len(a), len(b)))],
+            default=0.0)
+    return out
+
+
+def worst(readings: list[dict]) -> dict:
+    """The largest of each number over the mixtures checked."""
+    return {k: max(r[k] for r in readings) for k in NUMBERS}
+
+
+def judge(numbers: dict, limits: dict) -> bool:
+    return all(numbers[k] <= limits[k] for k in NUMBERS)

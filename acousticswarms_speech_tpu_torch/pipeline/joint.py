@@ -3,17 +3,30 @@
 
 Localize by separation (SRP pruning -> coarse spotform -> fine spotform ->
 NMS), then separate by localization (one SepNet forward over the final
-speakers' TDoAs).  Stage wall times are kept in `self.times[0..4]` in the
-reference's order (SRP, coarse, fine, clustering, separation); the search
-geometry is set up once per microphone configuration.  Each stage is also a
-`torch.profiler.record_function` span named after its `stage_metrics()`
-key, which `forward(mix, profile_dir=...)` writes into a trace.
+speakers' TDoAs).  The search geometry is set up once per microphone
+configuration.
+
+Each stage is a span of utils/spans.py named after its `stage_metrics()`
+key: a `torch.profiler.record_function`, which `forward(mix,
+profile_dir=...)` writes into a trace, timed on `time.perf_counter` into
+`self.times[0..4]` in the reference's order (SRP, coarse, fine,
+clustering, separation).  Inside the stages and the set-up, spans and
+counters mark the layers: `search.subdivide` (host subdivision),
+`device.wait` (the host's blocking reads of device results),
+`array.geometry` and `array.steering_table` (set-up), and the counts
+`search.subdivided_overlap`, `search.survivors_reused` and
+`search.survivors` (the stage-1 overlap's reach).
+
+Each forward (each chunk of `forward_streaming`) records them, with the
+count of candidates swept (`search.candidates`) and, on an array's first
+forward, the array's set-up spans.  A completed forward keeps its record as
+`self.last_record` and appends it to the log of `spans.records()`; one
+that raises publishes nothing, and its record, set-up included, is dropped.
 """
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import numpy as np
 import torch
@@ -23,6 +36,7 @@ from ..device import resolve_device
 from ..models.weights import load_release
 from ..search.spotform import (SeparationInference, SpotformExecutor,
                                SweepLane, _BatchedSweep, to_numpy)
+from ..utils import spans
 from .mic_array import MicArray
 
 # stage_metrics() keys of self.times[0..4], also the profiler spans' names
@@ -77,6 +91,7 @@ class JointPipeline:
         self.times = [0.0] * 5
         self.previous_config: str | None = None
         self.mic_processor: MicArray | None = None
+        self.last_record: spans.Record | None = None
 
     @classmethod
     def from_release(cls, spot_dir: str, sep_dir: str, device=None,
@@ -152,26 +167,34 @@ class JointPipeline:
 
     @torch.no_grad()
     def _forward(self, mix_data):
-        mix_np = to_numpy(mix_data)
-        crop = self._crop_slice(mix_np)
-        # upload once; every stage reads the device copy
-        mix = torch.as_tensor(mix_np, dtype=torch.float32, device=self.device)
-        mix_sweep = (mix[:, crop[0] : crop[0] + crop[1]].contiguous()
-                     if crop is not None else None)
-        self.times = [0.0] * 5
-        patches, audio_loc, srp_drop, stage1_drop, spot_times = \
-            self.localize_by_separation(mix, mix_sweep=mix_sweep)
-        with self._stage(4):
-            audio = self.separate_by_localization(mix, patches)
+        record = spans.Record()
+        processor = self.mic_processor
+        if processor is not None and processor.setup_record is not None:
+            record.spans += processor.setup_record.spans
+            processor.setup_record = None
+        with spans.recording(record):
+            mix_np = to_numpy(mix_data)
+            crop = self._crop_slice(mix_np)
+            # upload once; every stage reads the device copy
+            mix = torch.as_tensor(mix_np, dtype=torch.float32,
+                                  device=self.device)
+            mix_sweep = (mix[:, crop[0] : crop[0] + crop[1]].contiguous()
+                         if crop is not None else None)
+            self.times = [0.0] * 5
+            patches, audio_loc, srp_drop, stage1_drop, spot_times = \
+                self.localize_by_separation(mix, mix_sweep=mix_sweep)
+            with self._stage(4):
+                audio = self.separate_by_localization(mix, patches)
+        self.last_record = record
+        spans.publish(record)
         return patches, audio_loc, audio, srp_drop, stage1_drop, spot_times
 
     @contextlib.contextmanager
     def _stage(self, i: int):
-        """Times stage `i` into self.times[i], inside a profiler span."""
-        t0 = time.time()
-        with torch.profiler.record_function(STAGES[i]):
+        """Times stage `i` into self.times[i]: the duration of its span."""
+        with spans.span(STAGES[i]) as s:
             yield
-        self.times[i] = time.time() - t0
+        self.times[i] = s.seconds
 
     def stage_metrics(self) -> dict:
         return {**dict(zip(STAGES, self.times)),
@@ -204,6 +227,7 @@ class JointPipeline:
                 if coarse.is_ready():
                     break
                 subdivided[id(p)] = processor.subdivide_patch(p)
+            spans.count("search.subdivided_overlap", len(subdivided))
             patch_list = processor.spotform_big_patch(
                 sweep_mix, patch_list, self.spot_model, sweep=coarse)
         if len(patch_list) <= 0:

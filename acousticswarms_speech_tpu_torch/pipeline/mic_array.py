@@ -44,6 +44,7 @@ from ..search.consistency import head_deviations
 from ..search.spotform import to_numpy
 from ..search.srp_pruning import SrpEngine
 from ..search.subdivide import binary_search_baseline, search_area
+from ..utils.spans import Record, count, recording, span
 
 # The classical baselines' maps, which replace the SRP map before pruning.
 BASELINE_MAPS = {"MUSIC": music_map_window, "TOPS": tops_map_window}
@@ -70,13 +71,19 @@ class MicArray:
             + 0.08
         ) / SPEED_OF_SOUND * FS
 
-        self.geom = build_geometry(self.mic_positions, spk_range,
-                                   grid_size=grid_size, cache_dir=cache_dir)
-        self.srp = SrpEngine(self.geom, threshold=threshold, width=INIT_WIDTH,
-                             freq_bins=FREQ_BINS, fs=FS, n_fft=N_FFT,
-                             device=self.device)
+        # the spans of this set-up, until a JointPipeline's first forward
+        # on the array takes them into its record (utils/spans.py)
+        self.setup_record: Record | None = Record()
+        with recording(self.setup_record):
+            with span("array.geometry"):
+                self.geom = build_geometry(self.mic_positions, spk_range,
+                                           grid_size=grid_size,
+                                           cache_dir=cache_dir)
+            with span("array.steering_table"):
+                self.srp = SrpEngine(self.geom, threshold=threshold,
+                                     width=INIT_WIDTH, freq_bins=FREQ_BINS,
+                                     fs=FS, n_fft=N_FFT, device=self.device)
 
-        self.original_times = 0
         self.spotforming_times = 0
         self.big_spotforming_times = 0
 
@@ -85,7 +92,6 @@ class MicArray:
         """SRP-PHAT map + adaptive peak pruning -> candidate patches
         (reference: Mic_Array.py:152-194)."""
         self.spotforming_times = 0
-        self.original_times = 0
         if self.prune_method == "SRP":
             self.srp.compute_map(mix_data)  # a device tensor is consumed as-is
         elif self.prune_method in BASELINE_MAPS:
@@ -117,8 +123,9 @@ class MicArray:
     def subdivide_patch(self, patch) -> list[Patch]:
         """Width-4 -> width-2 subdivision of one candidate (host-side; can
         run while a device sweep is in flight)."""
-        return search_area([patch], self.mic_positions,
-                           self.upper_bound_pairwise)
+        with span("search.subdivide"):
+            return search_area([patch], self.mic_positions,
+                               self.upper_bound_pairwise)
 
     # ----- stage 2 -------------------------------------------------------
     def spotform_small_patch_parallel(self, mix_data: np.ndarray,
@@ -159,10 +166,12 @@ class MicArray:
             spot_power_threshold = SPOT_POWER_THRESHOLD2
 
         # 2.1: subdivide and collect all small patches across big patches
+        count("search.survivors", len(candidate_finished))
         for i in range(len(candidate_finished)):
             key = id(candidate_finished[i])
             if subdivided is not None and key in subdivided:
                 patch_processed = list(subdivided[key])
+                count("search.survivors_reused")
             else:
                 patch_processed = self.subdivide_patch(candidate_finished[i])
             init_area_total.append(candidate_finished[i].area_points)

@@ -31,8 +31,9 @@ from .joint import JointPipeline
 
 def make_lane(pipe: JointPipeline) -> JointPipeline:
     """A pipeline view sharing `pipe`'s networks, executors, device and
-    every other attribute, with its own per-mixture stage state (`times`,
-    `previous_config`, `mic_processor`) and its own spot-call count.
+    every other attribute, with its own per-mixture state (`times`,
+    `previous_config`, `mic_processor`, `last_record`) and its own
+    spot-call count.
 
     The lane starts from a copy of `pipe.__dict__`, so an attribute added
     to the pipeline (in `__init__` or later) reaches every lane."""
@@ -43,6 +44,7 @@ def make_lane(pipe: JointPipeline) -> JointPipeline:
     lane.times = [0.0] * 5
     lane.previous_config = None
     lane.mic_processor = None
+    lane.last_record = None
     return lane
 
 

@@ -33,6 +33,7 @@ from ..models.common import normalize_input, unnormalize_input
 from ..ops.power import candidate_powers
 from ..ops.shift import roll_channels_batch, roll_zero_fill_batch
 from ..ops.similarity import sisdr_matrix
+from ..utils.spans import count, span
 
 # Candidates per spotformer forward.  Activations of one candidate at
 # T = 72000 take about 0.2 GB in float32.
@@ -77,7 +78,8 @@ class SweepResult:
     """Device-resident sweep outputs.  Constructing one only queues the
     device work, so the host can work beside it (`is_ready` polls it); the
     first access to `powers`, `powers_win` or `sisdr_mat` copies all the
-    scalars to the host at once."""
+    scalars to the host at once.  The copies wait for the device inside a
+    `device.wait` span (utils/spans.py)."""
 
     def __init__(self, out: torch.Tensor, n: int, totals: torch.Tensor,
                  wins: torch.Tensor, sim: torch.Tensor | None = None,
@@ -99,7 +101,9 @@ class SweepResult:
             parts = [self._totals, self._wins]
             if self._sim is not None:
                 parts.append(self._sim.reshape(-1))
-            self._fetched = to_numpy(torch.cat(parts))
+            flat = torch.cat(parts)
+            with span("device.wait"):
+                self._fetched = to_numpy(flat)
         return self._fetched
 
     @property
@@ -123,12 +127,16 @@ class SweepResult:
         indices = [int(i) for i in indices]
         if not indices:
             return {}
-        rows = self._out[torch.as_tensor(indices, device=self._out.device)]
-        if quantize:
-            q, scales = _quantize_rows(rows)
-            sel = to_numpy(q).astype(np.float32) * to_numpy(scales)[:, None]
-        else:
-            sel = to_numpy(rows)
+        # the indices' upload from pageable memory waits for the device too
+        with span("device.wait"):
+            rows = self._out[torch.as_tensor(indices,
+                                             device=self._out.device)]
+            if quantize:
+                q, scales = _quantize_rows(rows)
+                sel = (to_numpy(q).astype(np.float32)
+                       * to_numpy(scales)[:, None])
+            else:
+                sel = to_numpy(rows)
         return {i: sel[k] for k, i in enumerate(indices)}
 
     def all_waveforms(self) -> np.ndarray:
@@ -184,6 +192,7 @@ class _BatchedSweep:
         first kernel (the mesh's candidate check; with gloo, the
         all-gathers through the host)."""
         n = len(patch_list)
+        count("search.candidates", n)
         mix = _as_device_mix(input_channels, self.device)
         shifts = _shift_matrix(patch_list, mix.shape[0])
         onehot = _upload(np.array([1.0, 0.0] if strict == 1 else [0.0, 1.0],
@@ -288,4 +297,6 @@ class SeparationInference:
         if self.use_bf16:
             normed = normed.to(torch.bfloat16)
         out = self.model(normed, torch.tensor([S], device=self.device)).float()
-        return to_numpy((out * stds + means)[0, :S])
+        out = (out * stds + means)[0, :S]
+        with span("device.wait"):
+            return to_numpy(out)

@@ -25,6 +25,7 @@ from ..dsp.geometry import TdoaGeometry
 from ..dsp.patch import (Patch, hyperbola_area_init_lazy,
                          hyperbola_area_sample)
 from ..ops.srp import SrpMapComputer, srp_window_size
+from ..utils.spans import span
 
 ERR_TOLERANCE = 0.2  # reference: SRP_Prunning.py:17
 
@@ -55,7 +56,9 @@ class SrpEngine:
         """Run the on-device SRP map and fill host-side state."""
         if window is None:
             window = srp_window_size(signal.shape[1])
-        self.srp_map = self.computer(signal, window).cpu().numpy()
+        srp_map = self.computer(signal, window)
+        with span("device.wait"):
+            self.srp_map = srp_map.cpu().numpy()
         self.max_power = float(self.srp_map.max())
         self.min_power = float(self.srp_map.min())
         return self.srp_map

@@ -53,9 +53,9 @@ class TdoaGeometry:
     array_border: np.ndarray     # [minx, miny, maxx, maxy] keepout box
 
     # Coarse 5 cm grid used to bound patch membership areas
-    # (SRP_Prunning.py:148-155); the fine 1 cm grid is computed on demand per
-    # bounding box via `fine_block` (the reference precomputes the whole
-    # room, SRP_Prunning.py:156-170).
+    # (SRP_Prunning.py:148-155); the fine 1 cm grid's members of a box are
+    # computed on demand per bounding box via `fine_members` (the reference
+    # precomputes the whole room, SRP_Prunning.py:156-170).
     pos5: np.ndarray             # (Ny5, Nx5, Nz, 3)
     off5: np.ndarray             # (Ny5, Nx5, Nz, M-1) float32
 
@@ -72,20 +72,69 @@ class TdoaGeometry:
         r = self.range_spk
         return [[r[0], r[1]], [r[2], r[3]], [r[4], r[5]]]
 
-    def fine_block(self, xi0: int, xi1: int, yi0: int, yi1: int):
-        """1 cm-grid positions and TDoA offsets for the index window
-        [yi0:yi1, xi0:xi1] of the room's fine grid — identical values to
-        cropping a precomputed whole-room grid."""
+    def fine_members(self, xi0: int, xi1: int, yi0: int, yi1: int,
+                     lo: np.ndarray, hi: np.ndarray):
+        """The points of the room's 1 cm grid in the index window
+        [yi0:yi1, xi0:xi1] whose float32 TDoA offsets lie in [lo, hi] on
+        every pair, in the window's C order over its 'xy' meshgrid
+        (Ny, Nx, Nz): (N, 3) float32 positions and their float64 offsets
+        (M-1, N), which equal `utils.shift.sample_offsets_for` of the
+        positions.  The float32 offsets are those of `_tdoa_field` over the
+        window's positions (the whole-room grid the reference precomputes,
+        cropped), to the bit.
+
+        The distances come from per-axis float64 squares (M, Nx), (M, Ny),
+        (M, Nz) of the float32 coordinates, summed as (dx² + dy²) + dz²,
+        the order of `np.linalg.norm` over the last axis, so no
+        (..., M, 3) differences are formed.  Pair by pair: the first pair's
+        offsets cover the window, each later pair's only the points that
+        passed the pairs before it."""
         r = self.range_spk
-        xx = r[0] + 0.01 * np.arange(xi0, xi1)
-        yy = r[2] + 0.01 * np.arange(yi0, yi1)
-        zz = np.arange(r[4], r[5], 0.1)
-        X, Y, Z = np.meshgrid(xx, yy, zz)  # 'xy': (Ny, Nx, Nz)
-        pos = np.stack((X, Y, Z), axis=3).astype(np.float32)
-        off = _tdoa_field(pos.astype(np.float64), self.mic_pos).astype(
-            np.float32
-        )
-        return pos, off
+        x = (r[0] + 0.01 * np.arange(xi0, xi1)).astype(np.float32)
+        y = (r[2] + 0.01 * np.arange(yi0, yi1)).astype(np.float32)
+        z = np.arange(r[4], r[5], 0.1).astype(np.float32)
+        dx2, dy2, dz2 = (np.square(a.astype(np.float64)[None, :]
+                                   - self.mic_pos[:, k, None])
+                         for k, a in enumerate((x, y, z)))
+        # bounds as 1-element float64 arrays: the float32 offsets compare
+        # in float64 under any NumPy's promotion rules (NumPy 1 casts a
+        # float64 scalar to float32 there)
+        lo = np.asarray(lo, dtype=np.float64)[:, None]
+        hi = np.asarray(hi, dtype=np.float64)[:, None]
+
+        def window_distance(m):  # (Ny * Nx * Nz,)
+            d = (dx2[m][None, :] + dy2[m][:, None])[..., None] + dz2[m]
+            return np.sqrt(d, out=d).ravel()
+
+        def passes(off, j):
+            f32 = off.astype(np.float32)
+            return (f32 >= lo[j]) & (f32 <= hi[j])
+
+        d0 = window_distance(0)
+        off = (window_distance(1) - d0) / SPEED_OF_SOUND * FS
+        cells = np.flatnonzero(passes(off, 0))
+        offs = [off[cells]]
+        d0 = d0[cells]
+        iy, ix, iz = np.unravel_index(cells, (y.shape[0], x.shape[0],
+                                              z.shape[0]))
+        for j in range(1, lo.shape[0]):
+            dj = np.sqrt((dx2[j + 1][ix] + dy2[j + 1][iy]) + dz2[j + 1][iz])
+            off = (dj - d0) / SPEED_OF_SOUND * FS
+            keep = np.flatnonzero(passes(off, j))
+            offs = [o[keep] for o in offs] + [off[keep]]
+            d0, iy, ix, iz = d0[keep], iy[keep], ix[keep], iz[keep]
+        pts = np.stack((x[ix], y[iy], z[iz]), axis=1)
+        return pts, np.stack(offs)
+
+    def fine_block(self, xi0: int, xi1: int, yi0: int, yi1: int):
+        """1 cm-grid positions (Ny, Nx, Nz, 3) and float32 TDoA offsets
+        (Ny, Nx, Nz, M-1) of the whole index window [yi0:yi1, xi0:xi1]:
+        `fine_members` with open bounds."""
+        edge = np.full(self.num_mic - 1, np.inf)
+        pts, off = self.fine_members(xi0, xi1, yi0, yi1, -edge, edge)
+        shape = (yi1 - yi0, xi1 - xi0, -1)
+        return (pts.reshape(*shape, 3),
+                off.T.astype(np.float32).reshape(*shape, off.shape[0]))
 
 
 def _tdoa_field(pos: np.ndarray, mic_pos: np.ndarray, fs: int = FS,

@@ -31,14 +31,24 @@ class Patch:
         (hyperbola_area_init_lazy) resolved on first access — the pipeline
         creates patches during SRP pruning but only touches their points
         during subdivision, which runs while the coarse sweep occupies the
-        device, so the ~0.1 s/patch 1 cm materialization overlaps compute."""
+        device, so the 1 cm materialization (a few ms a patch) overlaps
+        compute.  The thunk returns the points and their TDoA samples."""
         if callable(self._area_points):
-            self._area_points = self._area_points()
+            self._area_points, self._area_samples = self._area_points()
         return self._area_points
 
     @area_points.setter
     def area_points(self, value):
         self._area_points = value
+        self._area_samples = None
+
+    @property
+    def area_samples(self):
+        """float64 TDoA (M-1, N) of the member points as
+        `utils.shift.sample_offsets_for` gives them, when known (the 1 cm
+        materialization computes them), else None."""
+        self.area_points  # resolve a deferred thunk
+        return self._area_samples
 
     def area_size(self) -> int:
         if self.area_points is None or self.area_points.shape[1] == 0:
@@ -78,8 +88,10 @@ class Patch:
         delta = np.abs(sample_offsets_gt - self.sample_offset[:, None])
         return bool(np.any(np.all(delta <= self.width_list[:, None] / 2 + 1, axis=0)))
 
-    def check_out(self, upper_bound_pairwise: np.ndarray) -> None:
-        """Shrink the patch toward physical TDoA bounds (Patch_3D.py:69-87)."""
+    def check_out(self, upper_bound_pairwise: np.ndarray) -> bool:
+        """Shrink the patch toward physical TDoA bounds (Patch_3D.py:69-87).
+        Returns whether the box changed."""
+        moved = False
         for i in range(self.num_pair):
             upper_bound = upper_bound_pairwise[i]
             while not (abs(self.sample_offset[i]) <= upper_bound
@@ -90,6 +102,8 @@ class Patch:
                 elif self.sample_offset[i] < -upper_bound:
                     self.sample_offset[i] += resolution / 4
                 self.width_list[i] = resolution / 2
+                moved = True
+        return moved
 
     def check_ready_spotforming(self, min_tolerance: float):
         for i in range(self.num_pair):
@@ -116,8 +130,9 @@ def hyperbola_area_init_lazy(geom, sample_offsets: np.ndarray, width: float):
     materialization to a thunk (reference: SRP_Prunning.py:41-61).
 
     Returns None when the 5 cm pass is empty (the patch would be discarded),
-    else a zero-arg callable producing the (3, N) member points.  The split
-    lets SRP pruning finish ~0.1 s/patch sooner per patch; the thunk resolves
+    else a zero-arg callable producing the (3, N) member points and their
+    float64 TDoA samples (M-1, N), or None for the samples on the lattice-edge
+    fallback.  The split lets SRP pruning finish sooner; the thunk resolves
     during subdivision, overlapped with the coarse device sweep.
 
     Note the reference uses a scalar width (the first pair's width + err
@@ -145,15 +160,15 @@ def hyperbola_area_init_lazy(geom, sample_offsets: np.ndarray, width: float):
         # the whole-room 1 cm TDoA field up front (SRP_Prunning.py:156-170,
         # ~10 s and tens of MB per room); computing the cropped block on
         # demand gives the same points at a fraction of the setup cost.
-        pos1, off1 = geom.fine_block(xi0, xi1, yi0, yi1)
-        in1 = np.all((off1 >= lo) & (off1 <= hi), axis=-1)
-        pts = pos1[in1]
+        pts, samples = geom.fine_members(xi0, xi1, yi0, yi1, lo, hi)
         if pts.shape[0] == 0:
             # Lattice-edge corner case: the 5 cm members sit exactly on the
             # half-open fine-block boundary.  They are genuine member points
             # (the 5 cm lattice is a subset of the 1 cm lattice), so use them.
-            return pts5.T.copy()
-        return pts.T
+            return pts5.T.copy(), None
+        # (N, 3) transposed, the layout of the block's points indexed by
+        # a mask: float32 means over the points sum in its order
+        return pts.T, samples
 
     return materialize
 
@@ -161,4 +176,4 @@ def hyperbola_area_init_lazy(geom, sample_offsets: np.ndarray, width: float):
 def hyperbola_area_init(geom, sample_offsets: np.ndarray, width: float):
     """Eager variant of hyperbola_area_init_lazy: (3, N) points or None."""
     thunk = hyperbola_area_init_lazy(geom, sample_offsets, width)
-    return None if thunk is None else thunk()
+    return None if thunk is None else thunk()[0]

@@ -187,9 +187,9 @@ class SrpEngine:
 
             width_list_new = np.array(width_list_new, dtype=np.float64)
             sample_offset_new = np.array(sample_offset_new, dtype=np.float64)
-            # Lazy: the 5 cm screen decides survival now; the ~0.1 s/patch
-            # 1 cm materialization resolves on first area_points access,
-            # which happens during subdivision while the coarse sweep runs.
+            # Lazy: the 5 cm screen decides survival now; the 1 cm
+            # materialization resolves on first area_points access, which
+            # happens during subdivision while the coarse sweep runs.
             init_area = hyperbola_area_init_lazy(
                 geom, sample_offset_new, width_list_new[0] + ERR_TOLERANCE
             )

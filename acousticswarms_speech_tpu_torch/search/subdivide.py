@@ -1,13 +1,15 @@
 """Search-space subdivision: width-4 patches -> balanced width-2 patches.
 
-Host NumPy, copied from the JAX package's `search/subdivide.py` for the PyTorch port
+Host NumPy, from the JAX package's `search/subdivide.py` for the PyTorch port
 (the port imports nothing of that package).
 
 Counterpart of reference sep/helpers/local_utils_3d.py:212-388
 (`search_area`, `binary_area_divide_width`, `binary_search_baseline`).
-The recursion is over tens of small patches with host-side numpy predicates;
-the expensive part (the spotforming sweep) runs on device via
-search/spotform.py.
+A candidate of ~20k member points splits in ~60 steps, each on whole
+arrays: every pair's two halves come from one comparison on that pair's row
+(the candidate's own box is tested on every pair and point once), so a
+candidate costs tens of milliseconds on the host.  The expensive part (the
+spotforming sweep) runs on device via search/spotform.py.
 """
 from __future__ import annotations
 
@@ -25,25 +27,38 @@ from ..dsp.patch import Patch
 from ..utils.shift import sample_offsets_for
 from . import power_trace
 
+# The reference's starting "most balanced" difference: a split is taken
+# only below it.
+_MAX_DIFFERENCE = 2500000
+
 
 def search_area(patch_list: list[Patch], mic_positions: np.ndarray,
                 upper_bound_pairwise: np.ndarray | None) -> list[Patch]:
     """Recursively subdivide patches until width <= 2*MIN_WIDTH_REQUIRED and
-    area <= MIN_AREA (reference: local_utils_3d.py:212-246)."""
+    area <= MIN_AREA (reference: local_utils_3d.py:212-246).  The leaves
+    come out breadth first, in list order within a level.  The first
+    patch's own samples (`Patch.area_samples`, which the 1 cm
+    materialization computes from the geometry's mic positions) take
+    precedence over `mic_positions`, which give the samples only where the
+    patch has none."""
     finish_patched: list[Patch] = []
 
-    points0 = patch_list[0].area_points  # (3, N)
-    samples = sample_offsets_for(points0.T, mic_positions, sr=48000).T  # (M-1, N)
+    samples = patch_list[0].area_samples  # (M-1, N), the 1 cm field's
+    if samples is None:
+        points0 = patch_list[0].area_points  # (3, N)
+        samples = sample_offsets_for(points0.T, mic_positions, sr=48000).T
     samples_lists = [samples]
+    # A half's points lie inside its box on every pair, so below the root
+    # only the split pair's row is tested (unless check_out moves the box).
+    boxed = [False]
 
     while True:
         next_patches: list[Patch] = []
         next_samples: list[np.ndarray] = []
         for i, patch in enumerate(patch_list):
-            pts_samples = samples_lists[i]
             if_continue, nxt_patch, nxt_sample = binary_area_divide_width(
-                patch, pts_samples, mic_positions, upper_bound_pairwise
-            )
+                patch, samples_lists[i], mic_positions, upper_bound_pairwise,
+                boxed=boxed[i])
             if if_continue:
                 next_patches.extend(nxt_patch)
                 next_samples.extend(nxt_sample)
@@ -53,83 +68,79 @@ def search_area(patch_list: list[Patch], mic_positions: np.ndarray,
             break
         patch_list = next_patches
         samples_lists = next_samples
+        boxed = [True] * len(patch_list)
     return finish_patched
 
 
 def binary_area_divide_width(patch: Patch, samples0: np.ndarray,
                              mic_positions: np.ndarray,
-                             upper_bound_pairwise: np.ndarray | None):
+                             upper_bound_pairwise: np.ndarray | None,
+                             boxed: bool = False):
     """One split step: halve the patch along the pair that best balances
-    member-point counts (reference: local_utils_3d.py:248-335)."""
+    member-point counts (reference: local_utils_3d.py:248-335).
+
+    All pairs at once: the parent's box is tested on every pair, and a
+    pair's halves differ from it only in that pair's row.  `boxed` says
+    every point of `samples0` lies inside the patch's box, as a half's do,
+    which spares that test while check_out leaves the box as it is.  The
+    widest pairs go first (half width > MIN_WIDTH_REQUIRED), then the most
+    balanced split, the lowest pair on a tie; empty halves are dropped."""
     if upper_bound_pairwise is not None:
-        patch.check_out(upper_bound_pairwise)
+        boxed = not patch.check_out(upper_bound_pairwise) and boxed
 
     candidates_area = patch.area_points
     candidates = patch.sample_offset
     widths = patch.width_list
     num_points = patch.area_size()
-    num_pair = candidates.shape[0]
 
     if (np.amax(widths) / 2 <= MIN_WIDTH_REQUIRED) and num_points <= MIN_AREA:
         return False, patch, samples0
 
-    min_difference = 2500000
-    min_patch = None
-    min_sample = None
-    remain_wide = False
-    found_any_nonempty = False
-
-    for i in range(num_pair):
-        if widths[i] / 2 < MIN_WIDTH:
-            continue
-        two_patches = []
-        two_samples = []
-        half0 = np.copy(candidates)
-        half0[i] -= widths[i] / 4
-        half1 = np.copy(candidates)
-        half1[i] += widths[i] / 4
-        half_width = np.copy(widths)
-        half_width[i] /= 2
-
-        patch0 = Patch(half0, half_width, None)
-        patch1 = Patch(half1, half_width, None)
-
-        area0 = patch0.hyperbola_sample(samples0) == 1
-        size0 = int(np.sum(area0))
-        if size0 > 0:
-            patch0.area_points = candidates_area[:, area0]
-            two_patches.append(patch0)
-            two_samples.append(samples0[:, area0])
-        area1 = patch1.hyperbola_sample(samples0) == 1
-        size1 = int(np.sum(area1))
-        if size1 > 0:
-            patch1.area_points = candidates_area[:, area1]
-            two_patches.append(patch1)
-            two_samples.append(samples0[:, area1])
-        if two_patches:
-            found_any_nonempty = True
-
-        # Prefer splits that still leave width > MIN_WIDTH_REQUIRED (i.e.,
-        # split the widest pairs first), then balance point counts.
-        if half_width[i] > MIN_WIDTH_REQUIRED:
-            if not remain_wide:
-                min_difference = abs(size0 - size1)
-                min_patch = two_patches
-                min_sample = two_samples
-                remain_wide = True
-            elif abs(size0 - size1) < min_difference:
-                min_difference = abs(size0 - size1)
-                min_patch = two_patches
-                min_sample = two_samples
-        else:
-            if not remain_wide and abs(size0 - size1) < min_difference:
-                min_difference = abs(size0 - size1)
-                min_patch = two_patches
-                min_sample = two_samples
-
-    if min_patch is None or not found_any_nonempty or len(min_patch) == 0:
+    pairs = np.flatnonzero(~(widths / 2 < MIN_WIDTH))
+    if pairs.shape[0] == 0:
         return False, patch, samples0
-    return True, min_patch, min_sample
+
+    # Each split pair's two halves (2, K), with the same expressions as a
+    # half's Patch box, tested on that pair's row only.
+    split_width = widths[pairs]
+    half_width = split_width / 2
+    halves = np.stack((candidates[pairs] - split_width / 4,
+                       candidates[pairs] + split_width / 4))
+    rows = samples0[pairs]  # (K, N)
+    area = (rows >= (halves - half_width / 2 - 1e-3)[:, :, None]) \
+        & (rows <= (halves + half_width / 2 + 1e-3)[:, :, None])
+    if not boxed:
+        # Points inside the parent's box on every pair but the split one.
+        lo = candidates - widths / 2 - 1e-3
+        hi = candidates + widths / 2 + 1e-3
+        outside = ~((samples0 >= lo[:, None]) & (samples0 <= hi[:, None]))
+        area &= (outside.sum(axis=0) - outside[pairs]) == 0
+    sizes = area.sum(axis=2)  # (2, K)
+    difference = np.abs(sizes[0] - sizes[1])
+
+    wide = np.flatnonzero(half_width > MIN_WIDTH_REQUIRED)
+    if wide.shape[0] > 0:
+        k = wide[np.argmin(difference[wide])]
+    else:
+        k = int(np.argmin(difference))
+        if not difference[k] < _MAX_DIFFERENCE:
+            return False, patch, samples0
+
+    i = pairs[k]
+    two_patches = []
+    two_samples = []
+    for h in range(2):
+        if sizes[h, k] > 0:
+            offset = np.copy(candidates)
+            offset[i] = halves[h, k]
+            width = np.copy(widths)
+            width[i] = half_width[k]
+            two_patches.append(Patch(offset, width,
+                                     candidates_area[:, area[h, k]]))
+            two_samples.append(samples0[:, area[h, k]])
+    if not two_patches:
+        return False, patch, samples0
+    return True, two_patches, two_samples
 
 
 def binary_search_baseline(mix_data: np.ndarray, spot_model, patch_list,

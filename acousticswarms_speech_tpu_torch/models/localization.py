@@ -17,6 +17,7 @@ from .common import run_block
 from .modules import (
     DecoderBlock,
     EncoderBlock,
+    GemmConv1d,
     TransformerEncoder,
     decoder_channel_plan,
     encoder_channel_plan,
@@ -42,7 +43,7 @@ class SpotNet(nn.Module):
         depth = len(self.stride_list)
         self.depth = depth
 
-        self.preproc = nn.Conv1d(n_mics, channels, 1)
+        self.preproc = GemmConv1d(n_mics, channels, 1)
         enc_plan = encoder_channel_plan(channels, channels, growth, depth)
         for i, (c_in, c_out) in enumerate(enc_plan):
             setattr(self, f"encoder_{i}", EncoderBlock(
@@ -57,12 +58,12 @@ class SpotNet(nn.Module):
                 residual_layers, residual_dilation_factor,
                 use_window_embedding=True))
         pad = encoder_kernel_size // 2
-        self.reference_bypass = nn.Conv1d(1, encoder_channels,
-                                          encoder_kernel_size,
-                                          stride=encoder_stride, padding=pad)
-        self.mask_encoder = nn.Conv1d(channels, encoder_channels,
-                                      encoder_kernel_size,
-                                      stride=encoder_stride, padding=pad)
+        self.reference_bypass = GemmConv1d(1, encoder_channels,
+                                           encoder_kernel_size,
+                                           stride=encoder_stride, padding=pad)
+        self.mask_encoder = GemmConv1d(channels, encoder_channels,
+                                       encoder_kernel_size,
+                                       stride=encoder_stride, padding=pad)
         self.output_decoder = nn.ConvTranspose1d(
             encoder_channels, 1, encoder_kernel_size,
             stride=encoder_kernel_size // 2)

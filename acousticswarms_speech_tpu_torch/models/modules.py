@@ -139,6 +139,81 @@ class TransformerEncoder(nn.Module):
         return x
 
 
+def conv1d_gemm(x: torch.Tensor, weight: torch.Tensor,
+                bias: torch.Tensor | None, stride: int = 1,
+                padding: int = 0) -> torch.Tensor:
+    """`F.conv1d(x, weight, bias, stride, padding)` (one group, no
+    dilation) as one batched matrix product over the unfolded input:
+    im2col to (B, C * k, L_out), then (O, C * k) @ that for each item, then
+    the bias.  The same products as the convolution, each output summed
+    over (c, j) in another order."""
+    B = x.shape[0]
+    O, C, k = weight.shape
+    cols = F.unfold(x[:, :, None], (1, k), padding=(0, padding),
+                    stride=(1, stride))
+    y = torch.bmm(weight.reshape(O, C * k).expand(B, O, C * k), cols)
+    return y if bias is None else y.add_(bias[:, None])
+
+
+class GemmConv1d(nn.Conv1d):
+    """nn.Conv1d (one group, no dilation, zero padding) as `conv1d_gemm`.
+    In float32 with TF32 off, cuDNN runs the networks' input projection
+    (kernel 1 from the microphones), reference bypass and mask encoder
+    (kernel 33, stride 16) on its legacy `implicit_convolve_sgemm`: the
+    mask encoder at about 15 TFLOP/s on an H100, where the product runs at
+    about 49.  The unfolded input is k / stride times the input's size
+    (2.1x for the mask encoder) and lives only inside the call."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if (self.groups != 1 or self.dilation != (1,)
+                or self.padding_mode != "zeros"
+                or isinstance(self.padding, str)):
+            raise ValueError("GemmConv1d takes one group, no dilation and "
+                             "a whole-number zero padding")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv1d_gemm(x, self.weight, self.bias, self.stride[0],
+                           self.padding[0])
+
+
+def conv_transpose1d_gemm(x: torch.Tensor, weight: torch.Tensor,
+                          bias: torch.Tensor) -> torch.Tensor:
+    """`F.conv_transpose1d(x, weight, bias, stride=k)` for a kernel k
+    equal to its stride, where no two taps overlap:
+    y[b, o, t * k + j] = bias[o] + sum_c weight[c, o, j] x[b, c, t].  One
+    batched matrix product with rows (o, j), the bias a column against a
+    row of ones, then one pass that interleaves the k rows of each o.  (The
+    ones cost a copy of the input, which is 2-4x smaller than the output;
+    starting the product from the broadcast bias, `baddbmm`, writes the
+    output once more and was slower on an H100.)"""
+    B, C, L = x.shape
+    _, O, k = weight.shape
+    w = torch.cat([weight.permute(1, 2, 0).reshape(O * k, C),
+                   bias.repeat_interleave(k)[:, None]], 1)
+    y = torch.bmm(w.expand(B, O * k, C + 1),
+                  torch.cat([x, x.new_ones(B, 1, L)], 1))
+    return y.view(B, O, k, L).transpose(2, 3).reshape(B, O, L * k)
+
+
+class GemmConvTranspose1d(nn.ConvTranspose1d):
+    """nn.ConvTranspose1d with kernel = stride and a bias (the decoders'
+    upsampling) as `conv_transpose1d_gemm`: cuDNN's `dgrad_engine` with
+    its bias pass took 1.03-2.1x as long on an H100 in float32 (10.1
+    against 4.8 ms for SpotNet's last decoder at 64 candidates)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if (self.kernel_size != self.stride or self.padding != (0,)
+                or self.output_padding != (0,) or self.groups != 1
+                or self.dilation != (1,) or self.bias is None):
+            raise ValueError("GemmConvTranspose1d takes kernel = stride, a "
+                             "bias, one group and no padding or dilation")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose1d_gemm(x, self.weight, self.bias)
+
+
 class DilatedResidualLayer(nn.Module):
     """Conv -> ReLU(+residual) -> LayerNorm over channels."""
 
@@ -202,8 +277,8 @@ class DecoderBlock(nn.Module):
                  residual_dilation_factor: int,
                  use_window_embedding: bool = False):
         super().__init__()
-        self.upsample_conv = nn.ConvTranspose1d(in_channels, 2 * out_channels,
-                                                stride, stride=stride)
+        self.upsample_conv = GemmConvTranspose1d(in_channels, 2 * out_channels,
+                                                 stride, stride=stride)
         self.embed1 = (nn.Conv1d(2, 2 * out_channels, 1)
                        if use_window_embedding else None)
         self.norm1 = GroupNorm(2, 2 * out_channels)

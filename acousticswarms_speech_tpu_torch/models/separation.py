@@ -21,6 +21,7 @@ from .conformer import ConformerLayer
 from .modules import (
     DecoderBlock,
     EncoderBlock,
+    GemmConv1d,
     TransformerEncoderLayer,
     decoder_channel_plan,
     encoder_channel_plan,
@@ -49,7 +50,7 @@ class SepNet(nn.Module):
         self.depth = depth
         self.bottleneck_layers = bottleneck_layers
 
-        self.preproc = nn.Conv1d(n_mics, channels, 1)
+        self.preproc = GemmConv1d(n_mics, channels, 1)
         enc_plan = encoder_channel_plan(channels, channels, growth, depth)
         for i, (c_in, c_out) in enumerate(enc_plan):
             setattr(self, f"encoder_{i}", EncoderBlock(
@@ -67,12 +68,12 @@ class SepNet(nn.Module):
                 c_in, c_out, self.stride_list[depth - 1 - i], kernel_size,
                 residual_layers, residual_dilation_factor))
         pad = encoder_kernel_size // 2
-        self.reference_bypass = nn.Conv1d(1, encoder_channels,
-                                          encoder_kernel_size,
-                                          stride=encoder_stride, padding=pad)
-        self.mask_encoder = nn.Conv1d(channels, encoder_channels,
-                                      encoder_kernel_size,
-                                      stride=encoder_stride, padding=pad)
+        self.reference_bypass = GemmConv1d(1, encoder_channels,
+                                           encoder_kernel_size,
+                                           stride=encoder_stride, padding=pad)
+        self.mask_encoder = GemmConv1d(channels, encoder_channels,
+                                       encoder_kernel_size,
+                                       stride=encoder_stride, padding=pad)
         self.output_decoder = nn.ConvTranspose1d(
             encoder_channels, 1, encoder_kernel_size,
             stride=encoder_kernel_size // 2)

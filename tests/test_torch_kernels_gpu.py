@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels of acousticswarms_speech_tpu_torch against
-their plain PyTorch versions, on the card.
+their plain PyTorch versions, and the networks' matrix-product convolutions
+against torch's convolutions, on the card.
 
 Every test here carries the `gpu` marker and skips without a CUDA device
 (decided inside a fixture, so every worker collects the same tests).  This
@@ -8,6 +9,7 @@ has neither:
 
     python3 -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py
 """
+import math
 import os
 import sys
 
@@ -120,3 +122,102 @@ def test_roll_ab_times_two_sources(cuda, tmp_path):
     times = res[(37, 10, 4096)]
     assert sorted(times) == ["copy", "current"]
     assert all(len(v) == 4 and min(v) > 0 for v in times.values())
+
+
+# The matrix-product forms of SpotNet's convolutions (models/modules.py
+# GemmConv1d, GemmConvTranspose1d) against torch's convolutions in float64
+# at release widths, on sweep chunks of 64, 17 and 1 candidates of 72000
+# samples (72192 after SpotNet's pad): a chunk holds 1 to 64.  Float32
+# with TF32 off: the same products summed in another order, a relative L2
+# error of about 1e-7; with TF32 on the products read 2.8e-4 to 3.0e-4 (an
+# H100), so the tolerance 1e-5 fails it.
+GEMM_RTOL = 1e-5
+
+
+def _spotnet_release_widths(cuda):
+    from acousticswarms_speech_tpu_torch.models import SpotNet, init_model
+
+    return init_model(SpotNet().eval(), seed=0).to(cuda)
+
+
+def _gemm_layers(net, batch):
+    """(name, module, input shape) of each layer with a matrix-product form,
+    at one chunk of `batch` candidates."""
+    T = 72192
+    shapes = {"preproc": (batch, 7, T), "reference_bypass": (batch, 1, T),
+              "mask_encoder": (batch, 64, T)}
+    for i in range(net.depth):  # decoder i upsamples to level depth - 1 - i
+        up = getattr(net, f"decoder_{i}").upsample_conv
+        out_len = T // math.prod(net.stride_list[: net.depth - 1 - i])
+        shapes[f"decoder_{i}.upsample_conv"] = (
+            batch, up.in_channels, out_len // up.stride[0])
+    modules = dict(net.named_modules())
+    return [(name, modules[name], shape) for name, shape in shapes.items()]
+
+
+def _rel(got, want):
+    return float((got - want).double().norm() / want.double().norm())
+
+
+def _exact(m, x):
+    """The layer as torch's own convolution in float64."""
+    from torch.nn import functional as F
+
+    x, w, b = x.double(), m.weight.double(), m.bias.double()
+    if isinstance(m, torch.nn.ConvTranspose1d):
+        return F.conv_transpose1d(x, w, b, stride=m.stride)
+    return F.conv1d(x, w, b, stride=m.stride, padding=m.padding)
+
+
+@pytest.mark.parametrize("batch", [64, 17, 1])
+def test_gemm_convolutions_match_plain_and_tf32_fails(cuda, batch):
+    net = _spotnet_release_widths(cuda)
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    errors, tf32_errors = {}, {}
+    try:
+        with torch.no_grad():
+            for name, m, shape in _gemm_layers(net, batch):
+                x = torch.randn(shape, device=cuda, generator=gen)
+                want = _exact(m, x)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                errors[name] = _rel(m(x), want)
+                torch.backends.cuda.matmul.allow_tf32 = True
+                tf32_errors[name] = _rel(m(x), want)
+                del x, want
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    assert len(errors) == 8
+    assert max(errors.values()) < GEMM_RTOL, errors
+    # The input projection's 7-term products stay float32 with TF32 on
+    # (its error read 0 on an H100): cuBLAS takes no TF32 kernel for them.
+    assert tf32_errors.pop("preproc") < GEMM_RTOL
+    assert min(tf32_errors.values()) > GEMM_RTOL, tf32_errors
+
+
+def test_spotnet_chunk_runs_no_legacy_convolution(cuda, tmp_path):
+    """A profiled SpotNet call on one chunk launches neither cuDNN's legacy
+    `implicit_convolve_sgemm` nor its transposed `dgrad_engine` for the
+    layers that have a matrix-product form (SpotNet's `output_decoder`,
+    kernel 33 at stride 16, overlapping, stays on the latter)."""
+    import json
+
+    net = _spotnet_release_widths(cuda)
+    x = torch.randn(64, 7, 72000, device=cuda)
+    w = torch.tensor([[0.0, 1.0]], device=cuda).expand(64, 2)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=False,
+            allow_tf32=False):
+        net(x, w)
+        with torch.profiler.profile(activities=acts) as prof:
+            net(x, w)
+            torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"]
+    assert names, "the profiler saw no kernel"
+    assert not [n for n in names if "implicit_convolve_sgemm" in n]
+    assert sum("dgrad_engine" in n for n in names) <= 1

@@ -12,6 +12,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.residual_epilogue import channel_layer_norm, residual_epilogue_cuda
+
 
 class ChannelLayerNorm(nn.Module):
     """LayerNorm over C of a (B, C, T) tensor, without transposing."""
@@ -23,11 +25,7 @@ class ChannelLayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        var, mean = torch.var_mean(xf, dim=1, correction=0, keepdim=True)
-        out = (xf - mean) * torch.rsqrt(var + self.eps) \
-            * self.weight.float()[None, :, None] + self.bias.float()[None, :, None]
-        return out.to(x.dtype)
+        return channel_layer_norm(x, self.weight, self.bias, self.eps)
 
 
 def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -215,7 +213,13 @@ class GemmConvTranspose1d(nn.ConvTranspose1d):
 
 
 class DilatedResidualLayer(nn.Module):
-    """Conv -> ReLU(+residual) -> LayerNorm over channels."""
+    """Conv -> ReLU(+residual) -> LayerNorm over channels.
+
+    A float32 CUDA input with gradients off runs the convolution without
+    its bias and the rest, bias add included, in the fused kernel K5
+    (ops/residual_epilogue.py): one pass over device memory instead of
+    eight.  Every other call (CPU, meta, bfloat16, training) runs the
+    composition below, which the kernel has no backward for."""
 
     def __init__(self, nchannels: int, ksize: int, dilation: int = 1):
         super().__init__()
@@ -225,6 +229,13 @@ class DilatedResidualLayer(nn.Module):
         self.norm = ChannelLayerNorm(nchannels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if (x.is_cuda and x.dtype == torch.float32
+                and not torch.is_grad_enabled()):
+            conv = self.conv
+            z = F.conv1d(x, conv.weight, None, conv.stride, conv.padding,
+                         conv.dilation)
+            return residual_epilogue_cuda(z, x, conv.bias, self.norm.weight,
+                                          self.norm.bias, self.norm.eps)
         return self.norm(F.relu(self.conv(x)) + x)
 
 

@@ -48,7 +48,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.roll_kernel import BUILD_ROOT, roll_channels_batch_cuda
+from ..ops.nvcc_build import BUILD_ROOT
+from ..ops.roll_kernel import roll_channels_batch_cuda
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))

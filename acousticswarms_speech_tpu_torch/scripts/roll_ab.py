@@ -26,7 +26,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..ops import roll_kernel
+from ..ops import nvcc_build, roll_kernel
 from ..ops.shift import roll_channels_batch_plain
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -35,10 +35,10 @@ SHAPES = [(336, 7, 72000), (1124, 10, 72000), (7000, 10, 1024)]
 
 def _build(name: str, source: str, out_dir: str):
     lib = os.path.join(out_dir, f"lib{name}.so")
-    proc = subprocess.run([roll_kernel._nvcc(), *roll_kernel.NVCC_FLAGS, "-o",
+    proc = subprocess.run([nvcc_build.nvcc(), *nvcc_build.NVCC_FLAGS, "-o",
                            lib, source], capture_output=True, text=True,
                           stdin=subprocess.DEVNULL,
-                          timeout=roll_kernel.NVCC_TIMEOUT_S)
+                          timeout=nvcc_build.NVCC_TIMEOUT_S)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
     fn = ctypes.CDLL(lib).roll_channels_batch_launch
@@ -53,7 +53,7 @@ def compare(sources: dict[str, str], shapes, rounds: int = 12,
             reps: int = 20) -> dict:
     """{shape: {name: [ms]}} for each version in `sources`: two timings a
     round, each the mean of `reps` launches."""
-    out_dir = os.path.join(roll_kernel.BUILD_ROOT, "roll_ab")
+    out_dir = os.path.join(nvcc_build.BUILD_ROOT, "roll_ab")
     os.makedirs(out_dir, exist_ok=True)
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {n: pool.submit(_build, n, s, out_dir)

@@ -5,15 +5,21 @@
 
 Phases, each printed with the seconds since start:
   device       the card's name, count and power limit;
-  build        nvcc builds the roll kernel (csrc/roll.cu), its register
+  build        nvcc builds the roll kernel (csrc/roll.cu) and the residual
+               epilogue K5 (csrc/residual_epilogue.cu), their register
                and spill report is printed, and g++ builds the WAV loader
-               (csrc/wavloader.cpp), both started together;
+               (csrc/wavloader.cpp), all started together;
   kernel check the roll kernel against its plain PyTorch version (exact
                equality: it is a copy) at M = 7, T in {72000, 144000},
                B in {32, 37, 512}, and at B = 7000, M = 10, T = 1024 (70000
                rows, past the grid's y limit of 65535), with edge and
                random shifts, timed with CUDA events beside the plain
                version, one torch.gather and the bytes bound;
+  K5 check     K5 against its plain version (exact equality: it sums in
+               torch.var_mean's order) at the main path's shapes: SpotNet's
+               five levels at a sweep chunk of 64 candidates, SepNet's four
+               at 3 and 5 talkers, timed with CUDA events beside the plain
+               version and the bytes bound (12 bytes an element);
   main path    JointPipeline.forward of the port on the 3 s, 7-mic bench
                scene (.bench_fixture_v2.npz) with both release networks at
                full width in float32: a warm-up forward, then a timed one
@@ -138,8 +144,17 @@ probe and the training, tools, generation, mining and baselines phases and
 read after each; the run fails unless each is 0.  The mesh phase's ranks count theirs (mesh_rank0,
 mesh_rank1); the run fails unless each is above 0.
 
+K5's launches are counted on every path in this process and in the mesh's
+ranks (set to 0 before, read after) beside what the networks' forwards owe:
+one a residual layer of each SpotNet or SepNet forward in float32 on the
+card with gradients off (30 a SpotNet chunk, 24 a SepNet forward), none in
+bfloat16 or with gradients on; the run fails where they differ, where the
+float32 forwards, evaluation passes, 10-mic steps or mesh ranks launch none,
+or where the bf16 forward launches any.  The profiled forward's trace must
+hold as many K5 kernels as the counter.
+
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-kernel table as JSON.  Any fault prints a traceback and exits 1 without
+kernel table as JSON, a row for each kernel.  Any fault prints a traceback and exits 1 without
 those lines; so does a machine without CUDA.  A watchdog ends a run that
 hangs.  The script imports nothing of JAX or of the JAX package.
 """
@@ -187,6 +202,19 @@ MIX_SAMPLES = 144000  # all 3 s of the scene
 # 70000 rows pass the grid's y limit of 65535.
 KERNEL_SHAPES = ([(B, 7, T) for T in (72000, 144000) for B in (32, 37, 512)]
                  + [(7000, 10, 1024)])
+# (B, C, T) of K5's launches on the main path: SpotNet's five levels at a
+# sweep chunk of 64 candidates (72192 samples after its pad), the first
+# (enc0) and last (enc4) in the kernel table; SepNet's four levels at 3 and 5
+# talkers (72000 samples)
+EPILOGUE_SHAPES = ([(64, C, T) for C, T in ((64, 72192), (64, 36096),
+                                           (128, 18048), (256, 4512),
+                                           (512, 1128))]
+                   + [(s, C, T) for s in (3, 5)
+                      for C, T in ((64, 72000), (64, 36000), (128, 18000),
+                                   (256, 4500))])
+EPILOGUE_KERNEL = "residual_epilogue_kernel"  # K5's kernel, in the trace
+# K5's launches on each path, as hold_epilogues read them
+K5_LAUNCHES: dict[str, int] = {}
 
 _T0 = time.time()
 
@@ -281,11 +309,11 @@ def device_phase() -> dict:
 
 
 def build_phase() -> dict:
-    """nvcc builds the roll kernel and g++ the WAV loader, both started
-    together; returns each build's seconds."""
+    """nvcc builds the roll kernel and the residual epilogue and g++ the
+    WAV loader, all started together; returns each build's seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from acousticswarms_speech_tpu_torch.ops import roll_kernel
+    from acousticswarms_speech_tpu_torch.ops import residual_epilogue, roll_kernel
     from acousticswarms_speech_tpu_torch.runtime import native
 
     def timed(build):
@@ -293,13 +321,15 @@ def build_phase() -> dict:
         return build(), time.time() - t0
 
     builds = {"roll.cu (nvcc)": roll_kernel.build,
+              "residual_epilogue.cu (nvcc)": residual_epilogue.build,
               "wavloader.cpp (g++)": native.build}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(timed, fn) for k, fn in builds.items()}
         done = {k: f.result() for k, f in futures.items()}
     for name, (path, sec) in done.items():
         log(f"build {name}: {os.path.relpath(path, REPO)} in {sec:.2f}s")
-    for line in roll_kernel.build_log().splitlines():
+    for line in (roll_kernel.build_log()
+                 + residual_epilogue.build_log()).splitlines():
         if "ptxas" in line or "registers" in line or "spill" in line:
             print(f"  {line.strip()}", flush=True)
     return {name: sec for name, (_, sec) in done.items()}
@@ -366,6 +396,89 @@ def kernel_check_phase() -> None:
             f"bound_ms={r['bound_ms']:.4f}")
 
 
+def check_epilogue(B: int, C: int, T: int, gen) -> dict:
+    """K5 against its plain version on seeded inputs of one shape (exact
+    equality), timed with CUDA events beside the plain version, with its
+    bytes bound: z and x read once, the output written once."""
+    import torch
+
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import (
+        residual_epilogue_cuda,
+        residual_epilogue_plain,
+    )
+
+    z = torch.randn(B, C, T, device=DEVICE, generator=gen)
+    x = torch.randn(B, C, T, device=DEVICE, generator=gen)
+    vecs = [torch.randn(C, device=DEVICE, generator=gen) * 0.3 + k
+            for k in (0.0, 1.0, 0.0)]  # conv bias, norm weight, norm bias
+    args = (z, x, *vecs, 1e-5)
+    got = residual_epilogue_cuda(*args)
+    want = residual_epilogue_plain(*args)
+    sync()
+    if not torch.equal(got, want):
+        bad = (got != want).sum().item()
+        raise AssertionError(f"K5 != plain at B={B} C={C} T={T}: {bad} "
+                             f"elements differ")
+    del got, want
+    res = {"B": B, "C": C, "T": T, "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: residual_epilogue_cuda(*args)),
+           "plain_ms": cuda_ms(lambda: residual_epilogue_plain(*args)),
+           "library_ms": None,
+           "bound_ms": 12 * B * C * T / HBM_BYTES_PER_S * 1e3}
+    return res
+
+
+def epilogue_check_phase() -> dict:
+    """K5 at every shape of EPILOGUE_SHAPES; returns its kernel row, at the
+    enc0 shape, with the enc4 shape's times beside it."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    rows = []
+    for B, C, T in EPILOGUE_SHAPES:
+        r = check_epilogue(B, C, T, gen)
+        rows.append(r)
+        log(f"K5 check B={B} C={C} T={T}: equal; kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+            f"({100 * r['bound_ms'] / r['ms']:.1f}% of the bound)")
+        torch.cuda.empty_cache()
+    enc0, enc4 = rows[0], rows[4]
+    return {
+        "name": "residual_epilogue", "route": "cuda",
+        "source": "acousticswarms_speech_tpu_torch/csrc/residual_epilogue.cu",
+        "replaces": None, "launches": None, "max_abs_err": 0.0,
+        "ms": enc0["ms"], "plain_ms": enc0["plain_ms"],
+        "bound_ms": enc0["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "shape": [enc0["B"], enc0["C"], enc0["T"]],
+        "enc4": {k: enc4[k] for k in ("B", "C", "T", "ms", "plain_ms",
+                                      "bound_ms")},
+        "shapes_checked": len(rows),
+    }
+
+
+def counting_epilogues():
+    """parallel/ranks.py counting_epilogues: K5's launches over a block
+    beside what the networks' forwards in it owe."""
+    from acousticswarms_speech_tpu_torch.parallel.ranks import \
+        counting_epilogues as counting
+
+    return counting()
+
+
+def hold_epilogues(label: str, k5: dict, launch: bool | None) -> int:
+    """K5's launches on a path equal what its networks' forwards owe, and
+    are above 0 (launch True) or 0 (launch False); recorded under `label`
+    in K5_LAUNCHES."""
+    n = k5["launches"]
+    if n != k5["want"] or (launch is True and n <= 0) or \
+            (launch is False and n != 0):
+        raise AssertionError(f"{label}: {n} K5 launches, the forwards owe "
+                             f"{k5['want']} ({k5['calls']} calls of "
+                             f"{k5['layers']} residual layers)")
+    K5_LAUNCHES[label] = n
+    return n
+
+
 def main_path_phase():
     import numpy as np
     import torch
@@ -418,7 +531,7 @@ def main_path_phase():
     pipe.spot_model.calls = 0
     try:
         # the roll inputs of the timed forward, recorded
-        with recording_rolls() as shapes:
+        with recording_rolls() as shapes, counting_epilogues() as k5:
             roll_channels_batch_cuda.launches = 0
             sync()
             torch.cuda.reset_peak_memory_stats()
@@ -429,6 +542,13 @@ def main_path_phase():
             launches = roll_channels_batch_cuda.launches
     finally:
         del proc.subdivide_patch, proc.spotform_big_patch
+    hold_epilogues("joint_forward", k5, True)
+    if k5["layers"] != {"SpotNet": 30, "SepNet": 24}:
+        raise AssertionError(f"release networks' residual layers: "
+                             f"{k5['layers']}")
+    log(f"K5 launches in the timed forward: {k5['launches']} = 30 x "
+        f"{k5['calls'].get('SpotNet', 0)} SpotNet chunks + 24 x "
+        f"{k5['calls'].get('SepNet', 0)} SepNet forwards")
 
     metrics = pipe.stage_metrics()
     log(f"timed forward {wall:.3f}s; stage_metrics "
@@ -698,16 +818,20 @@ def eval_phase() -> dict:
         stats.update(st)
         return results, st
 
-    def timed_eval(folder, **kwargs):
-        """(counts, seconds, roll launches, setup and forward seconds)."""
+    def timed_eval(folder, label, **kwargs):
+        """(counts, seconds, roll launches, setup and forward seconds); K5's
+        launches held to what the pass's forwards owe."""
         clock.seconds.clear()
-        roll_channels_batch_cuda.launches = 0
-        sync()
-        t0 = time.time()
-        counts = evaluate_dataset(pipe, DEV_SET, results_folder=folder,
-                                  **kwargs)
-        sync()
-        return (counts, time.time() - t0, roll_channels_batch_cuda.launches,
+        with counting_epilogues() as k5:
+            roll_channels_batch_cuda.launches = 0
+            sync()
+            t0 = time.time()
+            counts = evaluate_dataset(pipe, DEV_SET, results_folder=folder,
+                                      **kwargs)
+            sync()
+            sec = time.time() - t0
+        hold_epilogues(label, k5, True)
+        return (counts, sec, roll_channels_batch_cuda.launches,
                 dict(clock.seconds))
 
     torch.cuda.reset_peak_memory_stats()
@@ -716,7 +840,7 @@ def eval_phase() -> dict:
         # the kernel against its plain version on them afterwards.
         with recording_rolls() as shapes:
             counts, default_s, default_launches, default_clock = \
-                timed_eval(default_dir)
+                timed_eval(default_dir, "evaluate_serial")
         default_forward_launches = list(forward_launches)
         if default_launches != len(shapes) or default_launches <= 0:
             raise AssertionError(f"serial eval: {default_launches} roll "
@@ -730,11 +854,12 @@ def eval_phase() -> dict:
         forward_launches.clear()
         in_lanes = set(lane_scenes).__contains__
         det_counts, serial_s, serial_launches, serial_clock = \
-            timed_eval(serial_dir, sample_filter=in_lanes)
+            timed_eval(serial_dir, "evaluate_serial_deterministic",
+                       sample_filter=in_lanes)
         det_forward_launches = list(forward_launches)
         throughput.PipelinedRunner.run = recording_run
         lane_counts, lanes_s, lanes_launches, _ = timed_eval(
-            lanes_dir, lanes=2, sample_filter=in_lanes)
+            lanes_dir, "evaluate_lanes", lanes=2, sample_filter=in_lanes)
     finally:
         throughput.PipelinedRunner.run = real_run
         JointPipeline.setup = real_setup
@@ -761,6 +886,11 @@ def eval_phase() -> dict:
         got.pop("stage_times")
         want.pop("stage_times")
         diffs += [f"{name} {d}" for d in _json_diff(want, got)]
+    if K5_LAUNCHES["evaluate_lanes"] != \
+            K5_LAUNCHES["evaluate_serial_deterministic"]:
+        raise AssertionError(f"K5 launches: lanes "
+                             f"{K5_LAUNCHES['evaluate_lanes']}, serial "
+                             f"{K5_LAUNCHES['evaluate_serial_deterministic']}")
     if diffs:
         for d in diffs[:40]:
             log(f"eval: lanes differ from serial: {d}")
@@ -842,7 +972,9 @@ def eval_phase() -> dict:
         f"{json.dumps(oracle['per_scene'])}")
     log(f"eval: roll kernel launches {default_launches} serial (default), "
         f"{serial_launches} serial (deterministic), {lanes_launches} lanes; "
-        f"peak device memory {peak_gb:.2f} GB")
+        f"K5 launches {K5_LAUNCHES['evaluate_serial']}, "
+        f"{K5_LAUNCHES['evaluate_serial_deterministic']} and "
+        f"{K5_LAUNCHES['evaluate_lanes']}; peak device memory {peak_gb:.2f} GB")
 
     from acousticswarms_speech_tpu_torch.ops.shift import \
         roll_channels_batch_plain
@@ -922,7 +1054,7 @@ def profile_phase(pipe, mix) -> dict:
     from acousticswarms_speech_tpu_torch.pipeline.joint import STAGES
 
     shutil.rmtree(PROFILE_DIR, ignore_errors=True)
-    with recording_rolls() as rolls:
+    with recording_rolls() as rolls, counting_epilogues() as k5:
         roll_channels_batch_cuda.launches = 0
         sync()
         t0 = time.time()
@@ -947,6 +1079,11 @@ def profile_phase(pipe, mix) -> dict:
         raise AssertionError(f"trace holds {trace_rolls} roll kernels, the "
                              f"counter {launches}")
     hold_rolls(rolls, "profiled forward")
+    hold_epilogues("joint_forward_profiled", k5, True)
+    trace_k5 = sum(EPILOGUE_KERNEL in e["name"] for e in kernels)
+    if trace_k5 != k5["launches"]:
+        raise AssertionError(f"trace holds {trace_k5} K5 kernels, the "
+                             f"counter {k5['launches']}")
     starts = [e["ts"] for e in kernels] + [e["ts"] for e in spans.values()]
     ends = ([e["ts"] + e["dur"] for e in kernels]
             + [e["ts"] + e["dur"] for e in spans.values()])
@@ -961,7 +1098,8 @@ def profile_phase(pipe, mix) -> dict:
         "window_s": window_s, "device_busy_s": busy_s,
         "idle_share": 1.0 - busy_s / window_s, "kernels": len(kernels),
         "kernel_names": len(by_name), "roll_launches": launches,
-        "trace_roll_kernels": trace_rolls,
+        "trace_roll_kernels": trace_rolls, "k5_launches": k5["launches"],
+        "trace_k5_kernels": trace_k5,
         "stage_spans_s": {k: spans[k]["dur"] / 1e6 for k in STAGES},
         "top_device_ops": [{"name": name[:120], "count": len(d),
                             "total_s": sum(d) / 1e6} for name, d in top],
@@ -971,7 +1109,8 @@ def profile_phase(pipe, mix) -> dict:
         f"forward spans {window_s:.3f}s, device busy {busy_s:.3f}s "
         f"(union of {len(kernels)} kernels of {len(by_name)} names), idle "
         f"share {out['idle_share']:.3f}; roll kernels {trace_rolls} in the "
-        f"trace, {launches} by the counter; equal to plain")
+        f"trace, {launches} by the counter; equal to plain; K5 kernels "
+        f"{trace_k5} in the trace, {k5['launches']} by the counter")
     log(f"profile: stage spans (s) "
         f"{json.dumps({k: round(v, 4) for k, v in out['stage_spans_s'].items()})}")
     for r in out["top_device_ops"]:
@@ -1075,7 +1214,7 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
     pipe16.forward(mix)
     sync()
     warm = time.time() - t0
-    with recording_rolls() as rolls:
+    with recording_rolls() as rolls, counting_epilogues() as k5:
         roll_channels_batch_cuda.launches = 0
         pipe16.spot_model.calls = 0
         sync()
@@ -1090,6 +1229,7 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
         raise AssertionError(f"bf16 forward: {len(patches)} heads, audio "
                              f"{audio.shape}, {launches} roll launches")
     hold_rolls(rolls, "bf16 forward")
+    hold_epilogues("joint_forward_bf16", k5, False)
     pos32 = np.array([p[0].center_pos()[:2] for p in heads32])
     matched = []
     for k, p in enumerate(patches):
@@ -1103,7 +1243,7 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
                 "matched": matched, **pipe16.stage_metrics()})
     log(f"bf16 forward: warm-up {warm:.2f}s, timed {wall:.3f}s; stage_metrics "
         f"{json.dumps(pipe16.stage_metrics())}; roll kernel launches "
-        f"{launches}, equal to plain")
+        f"{launches}, equal to plain; K5 launches 0")
     log(f"bf16 forward: {len(patches)} heads beside {len(heads32)} in "
         f"float32; matched (bf16 head, f32 head, distance m, SI-SDR of bf16 "
         f"audio against f32 dB): "
@@ -2268,13 +2408,13 @@ def many_mics_phase() -> dict:
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    out = {"launches": {}, "seconds": {}}
+    out = {"launches": {}, "k5_launches": {}, "seconds": {}}
     rolls = []
 
     def drive(name, fn):
         """fn() with the launch count set to 0 just before and read just
         after; returns (result, seconds)."""
-        with recording_rolls() as got:
+        with recording_rolls() as got, counting_epilogues() as k5:
             roll_channels_batch_cuda.launches = 0
             sync()
             t0 = time.time()
@@ -2285,6 +2425,8 @@ def many_mics_phase() -> dict:
         if n != len(got):
             raise AssertionError(f"many_mics {name}: {n} launches for "
                                  f"{len(got)} rolls")
+        out["k5_launches"][name] = hold_epilogues(f"many_mics.{name}", k5,
+                                                  None)
         out["launches"][name] = n
         out["seconds"][name] = sec
         rolls.extend(got)
@@ -2352,6 +2494,8 @@ def many_mics_phase() -> dict:
     total = sum(out["launches"].values())
     if total <= 0:
         raise AssertionError("the 10-mic path never launched the roll kernel")
+    if sum(out["k5_launches"].values()) <= 0:
+        raise AssertionError("the 10-mic path never launched K5")
     hold_rolls(rolls, "many_mics")
     m, s = max(rolls, key=lambda r: r[1].shape[0] * r[0].shape[1])
     big = check_kernel(m.contiguous(), s.contiguous())
@@ -2359,6 +2503,7 @@ def many_mics_phase() -> dict:
                                                  "plain_ms", "library_ms",
                                                  "bound_ms")}
     out["roll_launches"] = total
+    log(f"many_mics: K5 launches {json.dumps(out['k5_launches'])}")
     log(f"many_mics: roll kernel launches {json.dumps(out['launches'])} "
         f"({total} in all), each equal to plain; largest launch "
         f"B={big['B']} M={big['M']} T={big['T']}: kernel_ms={big['ms']:.4f} "
@@ -2587,12 +2732,15 @@ def mesh_phase(fine_mix, fine_shifts, mix) -> dict:
             if r["launches"] <= 0:
                 raise AssertionError(f"mesh {label} rank {r['rank']}: no roll "
                                      f"kernel launch")
+            hold_epilogues(f"mesh_{label.split()[0]}_rank{r['rank']}",
+                           r["k5"], True)
             log(f"mesh {label} rank {r['rank']} ({r['backend']}, "
                 f"{r['device']}): sharded sweep {r['sharded_sweep_s']:.3f}s, "
                 f"of which all-gathers {r['gather_s']:.4f}s "
                 f"({100 * r['gather_s'] / r['sharded_sweep_s']:.1f}%); roll "
                 f"kernel launches {r['launches']} ({r['sweep_launches']} in "
-                f"the sweep), largest {k['shape']} equal to plain; spot calls "
+                f"the sweep), largest {k['shape']} equal to plain; K5 "
+                f"launches {r['k5']['launches']}; spot calls "
                 f"{r['sweep_spot_calls']} in the sweep"
                 + (f", {r['forward_spot_calls']} in the forward "
                    f"{r['sharded_forward_s']:.3f}s" if forward else "")
@@ -2655,17 +2803,21 @@ def mesh_phase(fine_mix, fine_shifts, mix) -> dict:
 
 def counted(name: str, phase, *args):
     """Run a phase with the roll kernel's launch count set to 0 just before
-    and read just after; these paths never roll, so it must stay 0."""
+    and read just after; these paths never roll, so it must stay 0.  K5's
+    launches are held to what the phase's forwards owe."""
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
 
     t0 = time.time()
-    roll_channels_batch_cuda.launches = 0
-    result = phase(*args)
-    sync()
-    launches = roll_channels_batch_cuda.launches
+    with counting_epilogues() as k5:
+        roll_channels_batch_cuda.launches = 0
+        result = phase(*args)
+        sync()
+        launches = roll_channels_batch_cuda.launches
+    hold_epilogues(name, k5, None)
     log(f"{name} phase {time.time() - t0:.2f}s; roll kernel launches "
-        f"{launches}")
+        f"{launches}; K5 launches {k5['launches']} ({k5['calls']} float32 "
+        f"forwards without gradients)")
     if launches != 0:
         raise AssertionError(f"{name} launched the roll kernel {launches} "
                              f"times")
@@ -2699,6 +2851,7 @@ def main() -> int:
         device = device_phase()
         build_s = build_phase()
         kernel_check_phase()
+        k5_row = epilogue_check_phase()
         pipe, mix, shapes, launches, f32_out, summary = main_path_phase()
         kernel_row = reference_phase(pipe, mix, shapes, launches)
         log(f"main path summary {json.dumps(summary)}")
@@ -2730,11 +2883,17 @@ def main() -> int:
         retune = retune_phase(evaluation)
         log(f"retune phase {time.time() - t0:.2f}s: {json.dumps(retune)}")
         t0 = time.time()
-        roll_channels_batch_cuda.launches = 0
-        training = train_phase()
-        train_launches = roll_channels_batch_cuda.launches
+        with counting_epilogues() as k5:
+            roll_channels_batch_cuda.launches = 0
+            training = train_phase()
+            train_launches = roll_channels_batch_cuda.launches
+        # the update steps run with gradients on, so only the validation
+        # passes (float32, no gradients) launch K5
+        hold_epilogues("train", k5, None)
         log(f"training phase {time.time() - t0:.2f}s: {json.dumps(training)}; "
-            f"roll kernel launches {train_launches}")
+            f"roll kernel launches {train_launches}; K5 launches "
+            f"{k5['launches']} ({k5['calls']} float32 forwards without "
+            f"gradients)")
         # The datasets shift on the host and the kernel has no VJP.
         if train_launches != 0:
             raise AssertionError(f"training launched the roll kernel "
@@ -2774,13 +2933,15 @@ def main() -> int:
                                         mesh["kernel_max_abs_err"])
         kernel_row["eval_largest_launch"] = evaluation["largest_launch"]
         kernel_row["many_mics_largest_launch"] = many_mics["largest_launch"]
+        k5_row["launches"] = K5_LAUNCHES["joint_forward"]
+        k5_row["launches_by_path"] = dict(K5_LAUNCHES)
     except BaseException:
         traceback.print_exc()
         sys.stderr.flush()
         return 1
     finally:
         faulthandler.cancel_dump_traceback_later()
-    print(json.dumps({"kernels": [kernel_row]}), flush=True)
+    print(json.dumps({"kernels": [kernel_row, k5_row]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

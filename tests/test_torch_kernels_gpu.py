@@ -221,3 +221,198 @@ def test_spotnet_chunk_runs_no_legacy_convolution(cuda, tmp_path):
     assert names, "the profiler saw no kernel"
     assert not [n for n in names if "implicit_convolve_sgemm" in n]
     assert sum("dgrad_engine" in n for n in names) <= 1
+
+
+# K5, the fused epilogue of a dilated residual layer (ops/residual_epilogue.py,
+# csrc/residual_epilogue.cu), against its plain version and a float64 copy.
+# (batch, C, T) of the residual stacks on the main path: SpotNet's five
+# levels at sweep chunks of 64, 17 and 1 candidates (72192 samples after its
+# pad), SepNet's four at 3 and 5 talkers (72000 samples).
+SPOT_LEVELS = [(64, 72192), (64, 36096), (128, 18048), (256, 4512), (512, 1128)]
+SEP_LEVELS = [(64, 72000), (64, 36000), (128, 18000), (256, 4500)]
+EPILOGUE_SHAPES = (
+    [(n, C, T) for n in (64, 17, 1) for C, T in SPOT_LEVELS]
+    + [(s, C, T) for s in (3, 5) for C, T in SEP_LEVELS]
+    # the scalar path (T not a multiple of 4: torch.var_mean then reads 2 or
+    # 1 outputs a thread and splits C otherwise); C not a power of two; few
+    # outputs (narrow reduction blocks); the most channels the kernel takes
+    + [(3, 64, 1001), (2, 256, 999), (2, 512, 258), (2, 48, 1000),
+       (1, 64, 20), (1, 512, 8)])
+
+
+def _epilogue_inputs(shape, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B, C, T = shape
+    z = torch.randn(B, C, T, device=device, generator=gen)
+    x = torch.randn(B, C, T, device=device, generator=gen)
+    cb = torch.randn(C, device=device, generator=gen) * 0.3
+    w = 1 + torch.randn(C, device=device, generator=gen) * 0.3
+    b = torch.randn(C, device=device, generator=gen) * 0.3
+    return z, x, cb, w, b
+
+
+def _epilogue_float64(z, x, cb, w, b, eps):
+    y = (z.double() + cb.double()[:, None]).clamp_min_(0).add_(x.double())
+    var, mean = torch.var_mean(y, dim=1, correction=0, keepdim=True)
+    return y.sub_(mean).mul_(torch.rsqrt(var + eps)) \
+        .mul_(w.double()[:, None]).add_(b.double()[:, None])
+
+
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_residual_epilogue_matches_plain_and_float64(cuda, shape):
+    """K5 gives the plain version's bits (torch.var_mean's sums in its
+    order, each affine step rounded alone), so its relative L2 error
+    against float64 is the plain version's, within the factor 1.5 that a
+    kernel with its own order of the sums would have to keep."""
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import (
+        residual_epilogue_cuda,
+        residual_epilogue_plain,
+    )
+
+    args = _epilogue_inputs(shape, cuda, sum(shape))
+    before = residual_epilogue_cuda.launches
+    got = residual_epilogue_cuda(*args, 1e-5)
+    torch.cuda.synchronize()
+    assert residual_epilogue_cuda.launches == before + 1
+    plain = residual_epilogue_plain(*args, 1e-5)
+    exact = _epilogue_float64(*args, 1e-5)
+    err, plain_err = _rel(got, exact), _rel(plain, exact)
+    assert torch.isfinite(got).all()
+    assert err <= 1.5 * plain_err, (err, plain_err)
+    assert torch.equal(got, plain), _rel(got, plain)
+
+
+@pytest.mark.parametrize("k,dilation", [(7, 1), (7, 7), (7, 49), (5, 2), (5, 4)])
+def test_residual_layer_kernel_is_the_composition(cuda, k, dilation):
+    """A DilatedResidualLayer on the card (float32, gradients off) runs its
+    convolution without the bias and K5, and gives to the bit what its
+    composition with the bias in the convolution gives."""
+    from torch.nn import functional as F
+
+    from acousticswarms_speech_tpu_torch.models.modules import DilatedResidualLayer
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+        residual_epilogue_cuda
+
+    torch.manual_seed(dilation)
+    layer = DilatedResidualLayer(128, k, dilation).to(cuda)
+    with torch.no_grad():
+        layer.norm.weight.normal_(1, 0.3)
+        layer.norm.bias.normal_(0, 0.3)
+        x = torch.randn(17, 128, 18048, device=cuda)
+        before = residual_epilogue_cuda.launches
+        got = layer(x)
+        assert residual_epilogue_cuda.launches == before + 1
+        assert torch.equal(got, layer.norm(F.relu(layer.conv(x)) + x))
+
+
+def test_residual_epilogue_unaligned_input(cuda):
+    """A contiguous view 4 bytes past an allocation's start takes the
+    scalar path and still matches the plain version."""
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import (
+        residual_epilogue_cuda,
+        residual_epilogue_plain,
+    )
+
+    z, x, cb, w, b = _epilogue_inputs((2, 64, 1024), cuda, 11)
+    zs = torch.empty(z.numel() + 1, device=cuda)[1:].view_as(z).copy_(z)
+    assert zs.is_contiguous() and zs.data_ptr() % 16 != 0
+    got = residual_epilogue_cuda(zs, x, cb, w, b, 1e-5)
+    assert _rel(got, residual_epilogue_plain(z, x, cb, w, b, 1e-5)) < 1e-6
+
+
+def test_residual_epilogue_rejects_bad_inputs(cuda):
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import (
+        MAX_CHANNELS,
+        residual_epilogue_cuda,
+    )
+
+    z, x, cb, w, b = _epilogue_inputs((2, 64, 256), cuda, 3)
+    before = residual_epilogue_cuda.launches
+    with pytest.raises(TypeError):
+        residual_epilogue_cuda(z.double(), x, cb, w, b, 1e-5)
+    with pytest.raises(TypeError):
+        residual_epilogue_cuda(z, x, cb.half(), w, b, 1e-5)
+    with pytest.raises(ValueError):  # shapes
+        residual_epilogue_cuda(z, x[:, :, :128].contiguous(), cb, w, b, 1e-5)
+    with pytest.raises(ValueError):
+        residual_epilogue_cuda(z, x, cb[:32], w, b, 1e-5)
+    with pytest.raises(ValueError):
+        residual_epilogue_cuda(z[0], x[0], cb, w, b, 1e-5)
+    with pytest.raises(ValueError):  # strides
+        residual_epilogue_cuda(z.transpose(1, 2).contiguous().transpose(1, 2),
+                               x, cb, w, b, 1e-5)
+    with pytest.raises(ValueError):  # devices
+        residual_epilogue_cuda(z, x.cpu(), cb, w, b, 1e-5)
+    big = _epilogue_inputs((1, MAX_CHANNELS + 1, 64), cuda, 4)
+    with pytest.raises(ValueError):  # channels
+        residual_epilogue_cuda(*big, 1e-5)
+    assert residual_epilogue_cuda.launches == before
+
+
+def test_residual_epilogue_counts_launches_and_dispatch(cuda):
+    """One SpotNet chunk launches K5 once for each of its 30 residual
+    layers and one SepNet forward 24 times, each launch counted on the
+    wrapper and in the open record; with gradients on, or in bfloat16,
+    a layer runs the plain composition."""
+    from acousticswarms_speech_tpu_torch.models import SepNet, SpotNet, init_model
+    from acousticswarms_speech_tpu_torch.models.modules import DilatedResidualLayer
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+        residual_epilogue_cuda
+    from acousticswarms_speech_tpu_torch.utils import spans
+
+    def launches(fn):
+        before = residual_epilogue_cuda.launches
+        with spans.recording(spans.Record()) as record:
+            fn()
+        torch.cuda.synchronize()
+        n = residual_epilogue_cuda.launches - before
+        assert record.counters.get("kernel.residual_epilogue", 0) == n
+        return n
+
+    spot = init_model(SpotNet().eval(), seed=0).to(cuda)
+    x = torch.randn(4, 7, 72000, device=cuda)
+    w = torch.tensor([[0.0, 1.0]], device=cuda).expand(4, 2)
+    with torch.no_grad():
+        assert launches(lambda: spot(x, w)) == 30
+    sep = init_model(SepNet().eval(), seed=0).to(cuda)
+    mix = torch.randn(1, 3 * 7, 72000, device=cuda)
+    with torch.no_grad():
+        assert launches(lambda: sep(mix, torch.tensor([3], device=cuda))) == 24
+
+    layer = DilatedResidualLayer(64, 7, 7).to(cuda)
+    h = torch.randn(2, 64, 4096, device=cuda)
+    with torch.enable_grad():
+        assert launches(lambda: layer(h).sum().backward()) == 0
+    with torch.no_grad():
+        assert launches(lambda: layer.to(torch.bfloat16)(h.bfloat16())) == 0
+
+
+def test_residual_epilogue_runs_in_threads(cuda):
+    """Two threads launch K5 at once: every result equals a lone launch's
+    to the bit (no atomics: the sums run in a fixed order) and every launch
+    is counted once."""
+    import threading
+
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+        residual_epilogue_cuda
+
+    inputs = [_epilogue_inputs(s, cuda, k)
+              for k, s in enumerate([(4, 512, 1128), (5, 64, 9000)])]
+    alone = [residual_epilogue_cuda(*a, 1e-5) for a in inputs]
+    torch.cuda.synchronize()
+    before = residual_epilogue_cuda.launches
+    bad = []
+
+    def run(k):
+        for _ in range(50):
+            if not torch.equal(residual_epilogue_cuda(*inputs[k], 1e-5),
+                               alone[k]):
+                bad.append(k)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    assert not bad
+    assert residual_epilogue_cuda.launches - before == 100

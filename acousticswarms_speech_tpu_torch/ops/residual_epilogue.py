@@ -10,22 +10,18 @@ variance, eps, statistics in float32).
 `residual_epilogue_plain` is the composition of PyTorch operations the
 layer ran before, and the test oracle.  `residual_epilogue_cuda` launches
 the hand-written kernel K5 (csrc/residual_epilogue.cu, built by
-ops/nvcc_build.py at the first CUDA call), which moves 12 bytes an element
+runtime/build.py at the first CUDA call), which moves 12 bytes an element
 where the composition moves 64 and gives the composition's bits on the
 card.  The kernel has no backward; the layer decides which of the two runs.
 """
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 from torch.nn import functional as F
 
-from ..utils.spans import count
-from . import nvcc_build
-
-SOURCE = nvcc_build.source_path("residual_epilogue.cu")
+from ..runtime.build import Library
 
 
 def channel_layer_norm(x: torch.Tensor, weight: torch.Tensor,
@@ -57,41 +53,13 @@ def _declare(lib) -> None:
     lib.residual_epilogue_init.restype = ctypes.c_int
 
 
-_library = nvcc_build.Library(SOURCE, "residual_epilogue", _declare)
-_count_lock = threading.Lock()
-_ready: set[int] = set()  # devices whose kernel attributes are set
-
-
-def _launcher(device: torch.device):
-    """The library's launch function, with the kernel's attributes set on
-    `device` at its first launch there."""
-    lib = _library.get()
-    index = torch.cuda.current_device() if device.index is None else device.index
-    if index not in _ready:
-        with _count_lock:
-            if index not in _ready:
-                with torch.cuda.device(index):
-                    err = lib.residual_epilogue_init()
-                if err != 0:
-                    raise RuntimeError(f"residual epilogue kernel set-up "
-                                       f"failed: cudaError {err}")
-                _ready.add(index)
-    return lib.residual_epilogue_launch
+# residual_epilogue_init sets the kernel's attributes on a device
+_library = Library("residual_epilogue.cu", _declare,
+                   init="residual_epilogue_init")
 
 # The channels the kernel stages at most (csrc/residual_epilogue.cu
 # kMaxChannels): 64 KB of shared memory a block at its smallest tile.
 MAX_CHANNELS = 512
-
-
-def build() -> str:
-    """Compile the kernel if this source has no library yet; returns the
-    library's path."""
-    return _library.build()
-
-
-def build_log() -> str:
-    """nvcc's output from the build of the current source ('' if none)."""
-    return _library.build_log()
 
 
 def residual_epilogue_cuda(z: torch.Tensor, x: torch.Tensor,
@@ -120,16 +88,10 @@ def residual_epilogue_cuda(z: torch.Tensor, x: torch.Tensor,
     out = torch.empty((B, C, T), dtype=z.dtype, device=z.device)
     if z.numel() == 0:
         return out
-    err = nvcc_build.launch(z.device, _launcher(z.device),
-                            z.data_ptr(), x.data_ptr(), conv_bias.data_ptr(),
-                            norm_weight.data_ptr(), norm_bias.data_ptr(),
-                            out.data_ptr(), B, C, T, float(eps))
-    if err != 0:
-        raise RuntimeError(f"residual epilogue kernel launch failed: "
-                           f"cudaError {err}")
-    with _count_lock:  # pipeline lanes launch from several threads
-        residual_epilogue_cuda.launches += 1
-    count("kernel.residual_epilogue")
+    _library.launch("residual_epilogue_launch", residual_epilogue_cuda,
+                    z.device, z.data_ptr(), x.data_ptr(), conv_bias.data_ptr(),
+                    norm_weight.data_ptr(), norm_bias.data_ptr(),
+                    out.data_ptr(), B, C, T, float(eps))
     return out
 
 

@@ -1,15 +1,12 @@
 """Load and launch the CUDA roll kernel (csrc/roll.cu), built by
-ops/nvcc_build.py at the first CUDA call."""
+runtime/build.py at the first CUDA call."""
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
-from . import nvcc_build
-
-SOURCE = nvcc_build.source_path("roll.cu")
+from ..runtime.build import Library
 
 
 def _declare(lib) -> None:
@@ -19,19 +16,8 @@ def _declare(lib) -> None:
     fn.restype = ctypes.c_int
 
 
-_library = nvcc_build.Library(SOURCE, "roll", _declare)
-_count_lock = threading.Lock()
-
-
-def build() -> str:
-    """Compile the kernel if this source has no library yet; returns the
-    library's path."""
-    return _library.build()
-
-
-def build_log() -> str:
-    """nvcc's output from the build of the current source ('' if none)."""
-    return _library.build_log()
+_library = Library("roll.cu", _declare)
+SOURCE = _library.source
 
 
 def roll_channels_batch_cuda(mix: torch.Tensor,
@@ -53,14 +39,9 @@ def roll_channels_batch_cuda(mix: torch.Tensor,
     out = torch.empty((B, M, T), dtype=mix.dtype, device=mix.device)
     if B == 0 or T == 0:
         return out
-    err = nvcc_build.launch(mix.device,
-                            _library.get().roll_channels_batch_launch,
-                            mix.data_ptr(), shifts.data_ptr(), out.data_ptr(),
-                            B, M, T)
-    if err != 0:
-        raise RuntimeError(f"roll kernel launch failed: cudaError {err}")
-    with _count_lock:  # pipeline lanes launch from several threads
-        roll_channels_batch_cuda.launches += 1
+    _library.launch("roll_channels_batch_launch", roll_channels_batch_cuda,
+                    mix.device, mix.data_ptr(), shifts.data_ptr(),
+                    out.data_ptr(), B, M, T)
     return out
 
 

@@ -16,8 +16,6 @@ model with a state_dict of numpy arrays).
 """
 from __future__ import annotations
 
-import contextlib
-import threading
 import time
 
 import numpy as np
@@ -40,49 +38,6 @@ def build_net(spec, device) -> torch.nn.Module | None:
     model.load_state_dict({k: torch.from_numpy(np.asarray(v))
                            for k, v in spec["state"].items()})
     return model.to(device)
-
-
-@contextlib.contextmanager
-def counting_epilogues():
-    """Counts the fused residual epilogue's (K5's) launches over the block
-    and the launches its networks' forwards should make: yields a dict that
-    holds, when the block ends, `launches` (the wrapper's count, set to 0
-    at the start), `want` (each SpotNet or SepNet forward in float32 on a
-    card with gradients off, from any thread, owes one launch for each of
-    its residual layers: 30 for SpotNet, 24 for SepNet at the release
-    widths), `calls` (such forwards of each network) and `layers` (the
-    residual layers of each network called)."""
-    from ..models import SepNet, SpotNet
-    from ..models.modules import DilatedResidualLayer
-    from ..ops.residual_epilogue import residual_epilogue_cuda
-
-    lock = threading.Lock()
-    out = {"want": 0, "calls": {}, "layers": {}}
-
-    def hook(module, args):
-        if not isinstance(module, (SpotNet, SepNet)):
-            return
-        p = next(module.parameters())
-        if not (p.is_cuda and p.dtype == torch.float32
-                and not torch.is_grad_enabled()):
-            return
-        name = type(module).__name__
-        layers = sum(isinstance(m, DilatedResidualLayer)
-                     for m in module.modules())
-        with lock:
-            out["want"] += layers
-            out["calls"][name] = out["calls"].get(name, 0) + 1
-            out["layers"][name] = layers
-
-    handle = torch.nn.modules.module.register_module_forward_pre_hook(hook)
-    residual_epilogue_cuda.launches = 0
-    try:
-        yield out
-    finally:
-        handle.remove()
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        out["launches"] = residual_epilogue_cuda.launches
 
 
 def _mesh(device):
@@ -219,23 +174,23 @@ def _timed_gathers(mesh, device, seconds: list) -> None:
 
 def release_mesh_check(device, spot_dir, mix_sweep, offsets,
                        deterministic: bool, forward=None) -> dict:
-    """The release SpotNet on a one-row mesh over the launched world, in
-    float32 with TF32 off: rank 0 sweeps `offsets` on `mix_sweep` unsharded,
-    then every rank sweeps them sharded.  With `forward` = {"sep_dir",
+    """The release localization network on a one-row mesh over the launched
+    world, in float32 with TF32 off: rank 0 sweeps `offsets` on `mix_sweep`
+    unsharded, then every rank sweeps them sharded.  With `forward` = {"sep_dir",
     "mix", "mic_pos", "roi", "cache_dir"}, rank 0 also runs the unsharded
     JointPipeline.forward of `mix`, and every rank then the sharded one
     (after one warm-up forward).
 
-    The roll kernel's launch count is set to 0 just before the sharded
-    sweep and forward and read just after; its inputs there are recorded,
-    and the kernel is then held against its plain version on the largest.
-    K5's launches there are counted beside what the networks' forwards
-    owe (`counting_epilogues`).
+    The roll kernel's and K5's launch counts are set to 0 just before the
+    sharded sweep and forward and read just after; the roll kernel's inputs
+    there are recorded, and the kernel is then held against its plain
+    version on the largest.
     Rank 0 returns the comparisons; every rank its times, launches, spot
     calls, peak memory and a checksum of its results."""
     import zlib
 
     from ..ops import shift as shift_ops
+    from ..ops.residual_epilogue import residual_epilogue_cuda
     from ..ops.roll_kernel import roll_channels_batch_cuda
     from ..pipeline.joint import JointPipeline
     from ..search import spotform
@@ -303,23 +258,22 @@ def release_mesh_check(device, spot_dir, mix_sweep, offsets,
         return real_roll(m, s)
 
     spotform.roll_channels_batch = recording_roll
-    roll_channels_batch_cuda.launches = 0
+    roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
     try:
-        with counting_epilogues() as k5:
-            sharded, out["sharded_sweep_s"] = timed(
-                lambda: sharded_exec.sweep(*sweep_args, **sweep_kw))
-            out["gather_s"] = gather_s[0]
-            out["sweep_launches"] = roll_channels_batch_cuda.launches
-            out["sweep_spot_calls"] = sharded_exec.calls
-            if forward is not None:
-                sharded_pipe.spot_model.calls = 0
-                out["sharded_forward"], out["sharded_forward_s"] = \
-                    run_forward(sharded_pipe)
-                out["forward_spot_calls"] = sharded_pipe.spot_model.calls
-            out["launches"] = roll_channels_batch_cuda.launches
+        sharded, out["sharded_sweep_s"] = timed(
+            lambda: sharded_exec.sweep(*sweep_args, **sweep_kw))
+        out["gather_s"] = gather_s[0]
+        out["sweep_launches"] = roll_channels_batch_cuda.launches
+        out["sweep_spot_calls"] = sharded_exec.calls
+        if forward is not None:
+            sharded_pipe.spot_model.calls = 0
+            out["sharded_forward"], out["sharded_forward_s"] = \
+                run_forward(sharded_pipe)
+            out["forward_spot_calls"] = sharded_pipe.spot_model.calls
+        out["launches"] = roll_channels_batch_cuda.launches
+        out["k5_launches"] = residual_epilogue_cuda.launches
     finally:
         spotform.roll_channels_batch = real_roll
-    out["k5"] = k5
     values = _sweep_values(sharded)
     out["checksum"] = zlib.crc32(b"".join(
         np.ascontiguousarray(values[k]).tobytes()

@@ -48,8 +48,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..ops.nvcc_build import BUILD_ROOT
 from ..ops.roll_kernel import roll_channels_batch_cuda
+from ..runtime.build import BUILD_ROOT
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))

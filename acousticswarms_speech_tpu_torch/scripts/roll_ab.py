@@ -21,31 +21,25 @@ import argparse
 import ctypes
 import os
 import statistics
-import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ..ops import nvcc_build, roll_kernel
+from ..ops import roll_kernel
 from ..ops.shift import roll_channels_batch_plain
+from ..runtime.build import BUILD_ROOT, compile_library
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 SHAPES = [(336, 7, 72000), (1124, 10, 72000), (7000, 10, 1024)]
 
 
 def _build(name: str, source: str, out_dir: str):
-    lib = os.path.join(out_dir, f"lib{name}.so")
-    proc = subprocess.run([nvcc_build.nvcc(), *nvcc_build.NVCC_FLAGS, "-o",
-                           lib, source], capture_output=True, text=True,
-                          stdin=subprocess.DEVNULL,
-                          timeout=nvcc_build.NVCC_TIMEOUT_S)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
+    lib = os.path.join(out_dir, name, "libroll.so")
+    log = compile_library(source, lib)
     fn = ctypes.CDLL(lib).roll_channels_batch_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    regs = [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-            if "registers" in ln]
+    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
     return fn, regs
 
 
@@ -53,8 +47,7 @@ def compare(sources: dict[str, str], shapes, rounds: int = 12,
             reps: int = 20) -> dict:
     """{shape: {name: [ms]}} for each version in `sources`: two timings a
     round, each the mean of `reps` launches."""
-    out_dir = os.path.join(nvcc_build.BUILD_ROOT, "roll_ab")
-    os.makedirs(out_dir, exist_ok=True)
+    out_dir = os.path.join(BUILD_ROOT, "roll_ab")
     with ThreadPoolExecutor(len(sources)) as pool:
         futures = {n: pool.submit(_build, n, s, out_dir)
                    for n, s in sources.items()}

@@ -144,14 +144,15 @@ probe and the training, tools, generation, mining and baselines phases and
 read after each; the run fails unless each is 0.  The mesh phase's ranks count theirs (mesh_rank0,
 mesh_rank1); the run fails unless each is above 0.
 
-K5's launches are counted on every path in this process and in the mesh's
-ranks (set to 0 before, read after) beside what the networks' forwards owe:
-one a residual layer of each SpotNet or SepNet forward in float32 on the
-card with gradients off (30 a SpotNet chunk, 24 a SepNet forward), none in
-bfloat16 or with gradients on; the run fails where they differ, where the
-float32 forwards, evaluation passes, 10-mic steps or mesh ranks launch none,
-or where the bf16 forward launches any.  The profiled forward's trace must
-hold as many K5 kernels as the counter.
+K5's launch count (residual_epilogue_cuda.launches) is set to 0 and read
+on the paths that read the roll kernel's, in this process and in the
+mesh's ranks.  The run fails where a float32 forward on the card (the
+timed and profiled forwards, each evaluation pass, the 10-mic steps but
+the bfloat16 forward, each mesh rank) launches none, where a bfloat16
+forward launches any, or where the lanes launch another number than the
+serial pass over the same scenes.  The profiled forward's trace must hold
+as many K5 kernels as the counter.  How many launches a network's forward
+makes is pinned by the `gpu` tests (tests/test_torch_kernels_gpu.py).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernel table as JSON, a row for each kernel.  Any fault prints a traceback and exits 1 without
@@ -213,8 +214,6 @@ EPILOGUE_SHAPES = ([(64, C, T) for C, T in ((64, 72192), (64, 36096),
                       for C, T in ((64, 72000), (64, 36000), (128, 18000),
                                    (256, 4500))])
 EPILOGUE_KERNEL = "residual_epilogue_kernel"  # K5's kernel, in the trace
-# K5's launches on each path, as hold_epilogues read them
-K5_LAUNCHES: dict[str, int] = {}
 
 _T0 = time.time()
 
@@ -313,23 +312,22 @@ def build_phase() -> dict:
     WAV loader, all started together; returns each build's seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from acousticswarms_speech_tpu_torch.ops import residual_epilogue, roll_kernel
-    from acousticswarms_speech_tpu_torch.runtime import native
+    from acousticswarms_speech_tpu_torch.runtime import build
 
-    def timed(build):
+    def timed(name):
         t0 = time.time()
-        return build(), time.time() - t0
+        return build.build(name), time.time() - t0
 
-    builds = {"roll.cu (nvcc)": roll_kernel.build,
-              "residual_epilogue.cu (nvcc)": residual_epilogue.build,
-              "wavloader.cpp (g++)": native.build}
+    builds = {"roll.cu (nvcc)": "roll.cu",
+              "residual_epilogue.cu (nvcc)": "residual_epilogue.cu",
+              "wavloader.cpp (g++)": "wavloader.cpp"}
     with ThreadPoolExecutor(len(builds)) as pool:
-        futures = {k: pool.submit(timed, fn) for k, fn in builds.items()}
+        futures = {k: pool.submit(timed, name) for k, name in builds.items()}
         done = {k: f.result() for k, f in futures.items()}
     for name, (path, sec) in done.items():
         log(f"build {name}: {os.path.relpath(path, REPO)} in {sec:.2f}s")
-    for line in (roll_kernel.build_log()
-                 + residual_epilogue.build_log()).splitlines():
+    for line in (build.build_log("roll.cu")
+                 + build.build_log("residual_epilogue.cu")).splitlines():
         if "ptxas" in line or "registers" in line or "spill" in line:
             print(f"  {line.strip()}", flush=True)
     return {name: sec for name, (_, sec) in done.items()}
@@ -456,27 +454,12 @@ def epilogue_check_phase() -> dict:
     }
 
 
-def counting_epilogues():
-    """parallel/ranks.py counting_epilogues: K5's launches over a block
-    beside what the networks' forwards in it owe."""
-    from acousticswarms_speech_tpu_torch.parallel.ranks import \
-        counting_epilogues as counting
-
-    return counting()
-
-
-def hold_epilogues(label: str, k5: dict, launch: bool | None) -> int:
-    """K5's launches on a path equal what its networks' forwards owe, and
-    are above 0 (launch True) or 0 (launch False); recorded under `label`
-    in K5_LAUNCHES."""
-    n = k5["launches"]
-    if n != k5["want"] or (launch is True and n <= 0) or \
-            (launch is False and n != 0):
-        raise AssertionError(f"{label}: {n} K5 launches, the forwards owe "
-                             f"{k5['want']} ({k5['calls']} calls of "
-                             f"{k5['layers']} residual layers)")
-    K5_LAUNCHES[label] = n
-    return n
+def check_k5(label: str, launches: int, float32: bool = True) -> int:
+    """K5's launches on a path: above 0 where it runs float32 forwards on
+    the card, 0 where it runs them in bfloat16 (float32 False)."""
+    if launches <= 0 if float32 else launches != 0:
+        raise AssertionError(f"{label}: {launches} K5 launches")
+    return launches
 
 
 def main_path_phase():
@@ -484,6 +467,8 @@ def main_path_phase():
     import torch
 
     from acousticswarms_speech_tpu_torch.models import load_release
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+        residual_epilogue_cuda
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
@@ -531,8 +516,8 @@ def main_path_phase():
     pipe.spot_model.calls = 0
     try:
         # the roll inputs of the timed forward, recorded
-        with recording_rolls() as shapes, counting_epilogues() as k5:
-            roll_channels_batch_cuda.launches = 0
+        with recording_rolls() as shapes:
+            roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
             sync()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
@@ -540,15 +525,11 @@ def main_path_phase():
             sync()
             wall = time.time() - t0
             launches = roll_channels_batch_cuda.launches
+            k5_launches = residual_epilogue_cuda.launches
     finally:
         del proc.subdivide_patch, proc.spotform_big_patch
-    hold_epilogues("joint_forward", k5, True)
-    if k5["layers"] != {"SpotNet": 30, "SepNet": 24}:
-        raise AssertionError(f"release networks' residual layers: "
-                             f"{k5['layers']}")
-    log(f"K5 launches in the timed forward: {k5['launches']} = 30 x "
-        f"{k5['calls'].get('SpotNet', 0)} SpotNet chunks + 24 x "
-        f"{k5['calls'].get('SepNet', 0)} SepNet forwards")
+    check_k5("joint_forward", k5_launches)
+    log(f"K5 launches in the timed forward: {k5_launches}")
 
     metrics = pipe.stage_metrics()
     log(f"timed forward {wall:.3f}s; stage_metrics "
@@ -597,7 +578,7 @@ def main_path_phase():
         "coarse_candidates": overlap["candidates"],
         "subdivisions": overlap["subdivided"],
         "subdivide_s": overlap["subdivide_s"],
-        "fine_sweep_alone_s": sweep_s,
+        "fine_sweep_alone_s": sweep_s, "k5_launches": k5_launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -769,6 +750,8 @@ def eval_phase() -> dict:
     and quality numbers."""
     import torch
 
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+        residual_epilogue_cuda
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline import throughput
@@ -801,6 +784,7 @@ def eval_phase() -> dict:
     # The roll launches of each forward of the serial passes, in scene
     # order: what the lanes pass over its subset of scenes must launch.
     forward_launches = []
+    k5 = {}  # K5's launches in each pass
 
     def counting_forward(self, *args, **kwargs):
         before = roll_channels_batch_cuda.launches
@@ -820,17 +804,16 @@ def eval_phase() -> dict:
 
     def timed_eval(folder, label, **kwargs):
         """(counts, seconds, roll launches, setup and forward seconds); K5's
-        launches held to what the pass's forwards owe."""
+        launches recorded under `label` and held above 0."""
         clock.seconds.clear()
-        with counting_epilogues() as k5:
-            roll_channels_batch_cuda.launches = 0
-            sync()
-            t0 = time.time()
-            counts = evaluate_dataset(pipe, DEV_SET, results_folder=folder,
-                                      **kwargs)
-            sync()
-            sec = time.time() - t0
-        hold_epilogues(label, k5, True)
+        roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
+        sync()
+        t0 = time.time()
+        counts = evaluate_dataset(pipe, DEV_SET, results_folder=folder,
+                                  **kwargs)
+        sync()
+        sec = time.time() - t0
+        k5[label] = check_k5(label, residual_epilogue_cuda.launches)
         return (counts, sec, roll_channels_batch_cuda.launches,
                 dict(clock.seconds))
 
@@ -886,11 +869,9 @@ def eval_phase() -> dict:
         got.pop("stage_times")
         want.pop("stage_times")
         diffs += [f"{name} {d}" for d in _json_diff(want, got)]
-    if K5_LAUNCHES["evaluate_lanes"] != \
-            K5_LAUNCHES["evaluate_serial_deterministic"]:
-        raise AssertionError(f"K5 launches: lanes "
-                             f"{K5_LAUNCHES['evaluate_lanes']}, serial "
-                             f"{K5_LAUNCHES['evaluate_serial_deterministic']}")
+    if k5["evaluate_lanes"] != k5["evaluate_serial_deterministic"]:
+        raise AssertionError(f"K5 launches: lanes {k5['evaluate_lanes']}, "
+                             f"serial {k5['evaluate_serial_deterministic']}")
     if diffs:
         for d in diffs[:40]:
             log(f"eval: lanes differ from serial: {d}")
@@ -940,7 +921,8 @@ def eval_phase() -> dict:
         "lane_utilization": stats["lane_utilization"],
         "roll_launches_serial": default_launches,
         "roll_launches_serial_deterministic": serial_launches,
-        "roll_launches_lanes": lanes_launches, "peak_memory_gb": peak_gb,
+        "roll_launches_lanes": lanes_launches, "k5_launches": k5,
+        "peak_memory_gb": peak_gb,
     }
     oracle = _oracle_sisdri(pipe, scenes)
     out["oracle_sisdri_mean"] = oracle["mean"]
@@ -972,9 +954,9 @@ def eval_phase() -> dict:
         f"{json.dumps(oracle['per_scene'])}")
     log(f"eval: roll kernel launches {default_launches} serial (default), "
         f"{serial_launches} serial (deterministic), {lanes_launches} lanes; "
-        f"K5 launches {K5_LAUNCHES['evaluate_serial']}, "
-        f"{K5_LAUNCHES['evaluate_serial_deterministic']} and "
-        f"{K5_LAUNCHES['evaluate_lanes']}; peak device memory {peak_gb:.2f} GB")
+        f"K5 launches {k5['evaluate_serial']}, "
+        f"{k5['evaluate_serial_deterministic']} and "
+        f"{k5['evaluate_lanes']}; peak device memory {peak_gb:.2f} GB")
 
     from acousticswarms_speech_tpu_torch.ops.shift import \
         roll_channels_batch_plain
@@ -1049,19 +1031,22 @@ def profile_phase(pipe, mix) -> dict:
     one's end, widened to the first and last kernel), the top device ops,
     each stage span's time; the trace's roll kernels must number the
     kernel counter's launches."""
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+        residual_epilogue_cuda
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline.joint import STAGES
 
     shutil.rmtree(PROFILE_DIR, ignore_errors=True)
-    with recording_rolls() as rolls, counting_epilogues() as k5:
-        roll_channels_batch_cuda.launches = 0
+    with recording_rolls() as rolls:
+        roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
         sync()
         t0 = time.time()
         patches, *_ = pipe.forward(mix, profile_dir=PROFILE_DIR)
         sync()
         wall = time.time() - t0
         launches = roll_channels_batch_cuda.launches
+        k5_launches = residual_epilogue_cuda.launches
     traces = glob.glob(os.path.join(PROFILE_DIR, "*.pt.trace.json"))
     if len(traces) != 1 or not patches:
         raise AssertionError(f"profiled forward: traces {traces}, "
@@ -1079,11 +1064,11 @@ def profile_phase(pipe, mix) -> dict:
         raise AssertionError(f"trace holds {trace_rolls} roll kernels, the "
                              f"counter {launches}")
     hold_rolls(rolls, "profiled forward")
-    hold_epilogues("joint_forward_profiled", k5, True)
+    check_k5("joint_forward_profiled", k5_launches)
     trace_k5 = sum(EPILOGUE_KERNEL in e["name"] for e in kernels)
-    if trace_k5 != k5["launches"]:
+    if trace_k5 != k5_launches:
         raise AssertionError(f"trace holds {trace_k5} K5 kernels, the "
-                             f"counter {k5['launches']}")
+                             f"counter {k5_launches}")
     starts = [e["ts"] for e in kernels] + [e["ts"] for e in spans.values()]
     ends = ([e["ts"] + e["dur"] for e in kernels]
             + [e["ts"] + e["dur"] for e in spans.values()])
@@ -1098,7 +1083,7 @@ def profile_phase(pipe, mix) -> dict:
         "window_s": window_s, "device_busy_s": busy_s,
         "idle_share": 1.0 - busy_s / window_s, "kernels": len(kernels),
         "kernel_names": len(by_name), "roll_launches": launches,
-        "trace_roll_kernels": trace_rolls, "k5_launches": k5["launches"],
+        "trace_roll_kernels": trace_rolls, "k5_launches": k5_launches,
         "trace_k5_kernels": trace_k5,
         "stage_spans_s": {k: spans[k]["dur"] / 1e6 for k in STAGES},
         "top_device_ops": [{"name": name[:120], "count": len(d),
@@ -1110,7 +1095,7 @@ def profile_phase(pipe, mix) -> dict:
         f"(union of {len(kernels)} kernels of {len(by_name)} names), idle "
         f"share {out['idle_share']:.3f}; roll kernels {trace_rolls} in the "
         f"trace, {launches} by the counter; equal to plain; K5 kernels "
-        f"{trace_k5} in the trace, {k5['launches']} by the counter")
+        f"{trace_k5} in the trace, {k5_launches} by the counter")
     log(f"profile: stage spans (s) "
         f"{json.dumps({k: round(v, 4) for k, v in out['stage_spans_s'].items()})}")
     for r in out["top_device_ops"]:
@@ -1199,6 +1184,8 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
     float32 forward's heads and audio."""
     import numpy as np
 
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+        residual_epilogue_cuda
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
@@ -1214,8 +1201,8 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
     pipe16.forward(mix)
     sync()
     warm = time.time() - t0
-    with recording_rolls() as rolls, counting_epilogues() as k5:
-        roll_channels_batch_cuda.launches = 0
+    with recording_rolls() as rolls:
+        roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
         pipe16.spot_model.calls = 0
         sync()
         t0 = time.time()
@@ -1223,13 +1210,14 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
         sync()
         wall = time.time() - t0
         launches = roll_channels_batch_cuda.launches
+        k5_launches = residual_epilogue_cuda.launches
     audio = np.asarray(audio)
     if not patches or audio.shape != (len(patches), mix.shape[1]) or not \
             np.isfinite(audio).all() or launches <= 0:
         raise AssertionError(f"bf16 forward: {len(patches)} heads, audio "
                              f"{audio.shape}, {launches} roll launches")
     hold_rolls(rolls, "bf16 forward")
-    hold_epilogues("joint_forward_bf16", k5, False)
+    check_k5("joint_forward_bf16", k5_launches, float32=False)
     pos32 = np.array([p[0].center_pos()[:2] for p in heads32])
     matched = []
     for k, p in enumerate(patches):
@@ -1239,6 +1227,7 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
                         "audio_sisdr_db": float(si_sdr(audio[k],
                                                        audio32[j]))})
     out.update({"warmup_s": warm, "wall_s": wall, "roll_launches": launches,
+                "k5_launches": k5_launches,
                 "heads": len(patches), "f32_heads": len(heads32),
                 "matched": matched, **pipe16.stage_metrics()})
     log(f"bf16 forward: warm-up {warm:.2f}s, timed {wall:.3f}s; stage_metrics "
@@ -1675,7 +1664,7 @@ def retune_phase(evaluation: dict) -> dict:
         f"{suite_s:.2f}s (started with (b))")
 
     t0 = time.time()
-    rows, probe_launches = counted(
+    rows, probe_launches, probe_k5 = counted(
         "probe_sep_batch", probe_sep_batch.probe, [1, 2, 4], SEP_DIR, DEVICE)
     probe_s = time.time() - t0
     for r in rows:
@@ -1689,7 +1678,8 @@ def retune_phase(evaluation: dict) -> dict:
                     for r in rows))
     return {"traced": traced, "loop_s": loop_s, "suite_s": suite_s,
             "probe": rows, "probe_s": probe_s,
-            "probe_roll_launches": probe_launches}
+            "probe_roll_launches": probe_launches,
+            "probe_k5_launches": probe_k5}
 
 
 def tools_phase() -> dict:
@@ -2400,6 +2390,8 @@ def many_mics_phase() -> dict:
     import torch
 
     from acousticswarms_speech_tpu_torch.data import voicegen
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+        residual_epilogue_cuda
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
@@ -2411,11 +2403,11 @@ def many_mics_phase() -> dict:
     out = {"launches": {}, "k5_launches": {}, "seconds": {}}
     rolls = []
 
-    def drive(name, fn):
-        """fn() with the launch count set to 0 just before and read just
-        after; returns (result, seconds)."""
-        with recording_rolls() as got, counting_epilogues() as k5:
-            roll_channels_batch_cuda.launches = 0
+    def drive(name, fn, float32=True):
+        """fn() with the launch counts set to 0 just before and read just
+        after (K5's held by check_k5); returns (result, seconds)."""
+        with recording_rolls() as got:
+            roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
             sync()
             t0 = time.time()
             result = fn()
@@ -2425,8 +2417,8 @@ def many_mics_phase() -> dict:
         if n != len(got):
             raise AssertionError(f"many_mics {name}: {n} launches for "
                                  f"{len(got)} rolls")
-        out["k5_launches"][name] = hold_epilogues(f"many_mics.{name}", k5,
-                                                  None)
+        out["k5_launches"][name] = check_k5(
+            f"many_mics.{name}", residual_epilogue_cuda.launches, float32)
         out["launches"][name] = n
         out["seconds"][name] = sec
         rolls.extend(got)
@@ -2494,8 +2486,6 @@ def many_mics_phase() -> dict:
     total = sum(out["launches"].values())
     if total <= 0:
         raise AssertionError("the 10-mic path never launched the roll kernel")
-    if sum(out["k5_launches"].values()) <= 0:
-        raise AssertionError("the 10-mic path never launched K5")
     hold_rolls(rolls, "many_mics")
     m, s = max(rolls, key=lambda r: r[1].shape[0] * r[0].shape[1])
     big = check_kernel(m.contiguous(), s.contiguous())
@@ -2596,8 +2586,8 @@ def _many_mics_driven(drive, pipe, scene, root, memory) -> dict:
                            device=DEVICE, use_bf16=True)
     args, kwargs = first["args"]
     pipe16.setup(*args, **kwargs)
-    (patches16, _, audio16, *_), wall16 = drive("forward_bf16",
-                                                lambda: pipe16.forward(mix))
+    (patches16, _, audio16, *_), wall16 = drive(
+        "forward_bf16", lambda: pipe16.forward(mix), float32=False)
     audio16 = np.asarray(audio16)
     if audio16.shape != (len(patches16), mix.shape[1]) or \
             not np.isfinite(audio16).all():
@@ -2732,15 +2722,14 @@ def mesh_phase(fine_mix, fine_shifts, mix) -> dict:
             if r["launches"] <= 0:
                 raise AssertionError(f"mesh {label} rank {r['rank']}: no roll "
                                      f"kernel launch")
-            hold_epilogues(f"mesh_{label.split()[0]}_rank{r['rank']}",
-                           r["k5"], True)
+            check_k5(f"mesh {label} rank {r['rank']}", r["k5_launches"])
             log(f"mesh {label} rank {r['rank']} ({r['backend']}, "
                 f"{r['device']}): sharded sweep {r['sharded_sweep_s']:.3f}s, "
                 f"of which all-gathers {r['gather_s']:.4f}s "
                 f"({100 * r['gather_s'] / r['sharded_sweep_s']:.1f}%); roll "
                 f"kernel launches {r['launches']} ({r['sweep_launches']} in "
                 f"the sweep), largest {k['shape']} equal to plain; K5 "
-                f"launches {r['k5']['launches']}; spot calls "
+                f"launches {r['k5_launches']}; spot calls "
                 f"{r['sweep_spot_calls']} in the sweep"
                 + (f", {r['forward_spot_calls']} in the forward "
                    f"{r['sharded_forward_s']:.3f}s" if forward else "")
@@ -2784,8 +2773,9 @@ def mesh_phase(fine_mix, fine_shifts, mix) -> dict:
         raise AssertionError(f"dry run exited {dry.returncode}:\n"
                              f"{dry.stdout}\n{dry.stderr}")
     log(f"mesh dry run in {out['dryrun_s']:.2f}s: {dry.stdout.strip()}")
-    out["launches"] = {"mesh_nccl_rank0": nccl[0]["launches"],
-                       **{f"mesh_rank{r['rank']}": r["launches"] for r in gloo}}
+    for key in ("launches", "k5_launches"):
+        out[key] = {"mesh_nccl_rank0": nccl[0][key],
+                    **{f"mesh_rank{r['rank']}": r[key] for r in gloo}}
     out["kernel_max_abs_err"] = max(r["kernel"]["max_abs_err"]
                                     for r in nccl + gloo)
     for label, res in (("nccl", nccl), ("gloo", gloo)):
@@ -2802,26 +2792,26 @@ def mesh_phase(fine_mix, fine_shifts, mix) -> dict:
 
 
 def counted(name: str, phase, *args):
-    """Run a phase with the roll kernel's launch count set to 0 just before
-    and read just after; these paths never roll, so it must stay 0.  K5's
-    launches are held to what the phase's forwards owe."""
+    """Run a phase with the roll kernel's and K5's launch counts set to 0
+    just before and read just after; these paths never roll, so the roll
+    kernel's must stay 0.  Returns (result, roll launches, K5 launches)."""
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+        residual_epilogue_cuda
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
 
     t0 = time.time()
-    with counting_epilogues() as k5:
-        roll_channels_batch_cuda.launches = 0
-        result = phase(*args)
-        sync()
-        launches = roll_channels_batch_cuda.launches
-    hold_epilogues(name, k5, None)
+    roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
+    result = phase(*args)
+    sync()
+    launches = roll_channels_batch_cuda.launches
+    k5_launches = residual_epilogue_cuda.launches
     log(f"{name} phase {time.time() - t0:.2f}s; roll kernel launches "
-        f"{launches}; K5 launches {k5['launches']} ({k5['calls']} float32 "
-        f"forwards without gradients)")
+        f"{launches}; K5 launches {k5_launches}")
     if launches != 0:
         raise AssertionError(f"{name} launched the roll kernel {launches} "
                              f"times")
-    return result, launches
+    return result, launches, k5_launches
 
 
 def _flatten_tree(tree, prefix=""):
@@ -2845,8 +2835,10 @@ def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, REPO)
     try:
+        from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+            residual_epilogue_cuda  # (fails early outside the repo)
         from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
-            roll_channels_batch_cuda  # (fails early outside the repo)
+            roll_channels_batch_cuda
 
         device = device_phase()
         build_s = build_phase()
@@ -2883,25 +2875,22 @@ def main() -> int:
         retune = retune_phase(evaluation)
         log(f"retune phase {time.time() - t0:.2f}s: {json.dumps(retune)}")
         t0 = time.time()
-        with counting_epilogues() as k5:
-            roll_channels_batch_cuda.launches = 0
-            training = train_phase()
-            train_launches = roll_channels_batch_cuda.launches
+        roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
+        training = train_phase()
+        train_launches = roll_channels_batch_cuda.launches
         # the update steps run with gradients on, so only the validation
         # passes (float32, no gradients) launch K5
-        hold_epilogues("train", k5, None)
+        train_k5 = residual_epilogue_cuda.launches
         log(f"training phase {time.time() - t0:.2f}s: {json.dumps(training)}; "
-            f"roll kernel launches {train_launches}; K5 launches "
-            f"{k5['launches']} ({k5['calls']} float32 forwards without "
-            f"gradients)")
+            f"roll kernel launches {train_launches}; K5 launches {train_k5}")
         # The datasets shift on the host and the kernel has no VJP.
         if train_launches != 0:
             raise AssertionError(f"training launched the roll kernel "
                                  f"{train_launches} times")
-        tools, tools_launches = counted("tools", tools_phase)
-        generation, gen_launches = counted("generation", generation_phase)
-        mining, mine_launches = counted("mining", mining_phase)
-        baselines, base_launches = counted("baselines", baselines_phase)
+        tools, tools_launches, tools_k5 = counted("tools", tools_phase)
+        generation, gen_launches, gen_k5 = counted("generation", generation_phase)
+        mining, mine_launches, mine_k5 = counted("mining", mining_phase)
+        baselines, base_launches, base_k5 = counted("baselines", baselines_phase)
         loader = loader_phase(build_s)
         new_paths = {"generation": generation, "mining": mining,
                      "baselines": baselines, "loader": loader, "tools": tools}
@@ -2933,8 +2922,16 @@ def main() -> int:
                                         mesh["kernel_max_abs_err"])
         kernel_row["eval_largest_launch"] = evaluation["largest_launch"]
         kernel_row["many_mics_largest_launch"] = many_mics["largest_launch"]
-        k5_row["launches"] = K5_LAUNCHES["joint_forward"]
-        k5_row["launches_by_path"] = dict(K5_LAUNCHES)
+        k5_row["launches"] = summary["k5_launches"]
+        k5_row["launches_by_path"] = {
+            "joint_forward": summary["k5_launches"],
+            "joint_forward_profiled": profile["k5_launches"],
+            "joint_forward_bf16": bf16["k5_launches"],
+            **{f"many_mics.{k}": n for k, n in many_mics["k5_launches"].items()},
+            **evaluation["k5_launches"],
+            "probe_sep_batch": retune["probe_k5_launches"], "train": train_k5,
+            "tools": tools_k5, "generation": gen_k5, "mining": mine_k5,
+            "baselines": base_k5, **mesh["k5_launches"]}
     except BaseException:
         traceback.print_exc()
         sys.stderr.flush()

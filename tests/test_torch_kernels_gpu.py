@@ -352,22 +352,18 @@ def test_residual_epilogue_rejects_bad_inputs(cuda):
 def test_residual_epilogue_counts_launches_and_dispatch(cuda):
     """One SpotNet chunk launches K5 once for each of its 30 residual
     layers and one SepNet forward 24 times, each launch counted on the
-    wrapper and in the open record; with gradients on, or in bfloat16,
-    a layer runs the plain composition."""
+    wrapper; with gradients on, or in bfloat16, a layer runs the plain
+    composition."""
     from acousticswarms_speech_tpu_torch.models import SepNet, SpotNet, init_model
     from acousticswarms_speech_tpu_torch.models.modules import DilatedResidualLayer
     from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
         residual_epilogue_cuda
-    from acousticswarms_speech_tpu_torch.utils import spans
 
     def launches(fn):
         before = residual_epilogue_cuda.launches
-        with spans.recording(spans.Record()) as record:
-            fn()
+        fn()
         torch.cuda.synchronize()
-        n = residual_epilogue_cuda.launches - before
-        assert record.counters.get("kernel.residual_epilogue", 0) == n
-        return n
+        return residual_epilogue_cuda.launches - before
 
     spot = init_model(SpotNet().eval(), seed=0).to(cuda)
     x = torch.randn(4, 7, 72000, device=cuda)

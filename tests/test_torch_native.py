@@ -1,13 +1,16 @@
 """The port's native WAV loader (runtime/native.py, csrc/wavloader.cpp): its
 reads equal utils.audio's and the JAX package's runtime/native.py's bit for
 bit on dev scenes, the training datasets read mixtures through it, and a
-failed build raises instead of falling back."""
+failed build of it or of a CUDA kernel (runtime/build.py) raises instead
+of falling back."""
+import functools
 import os
 
 import numpy as np
 import pytest
 
 from acousticswarms_speech_tpu.runtime import native as jax_native
+from acousticswarms_speech_tpu_torch.runtime import build as libbuild
 from acousticswarms_speech_tpu_torch.runtime import native
 from acousticswarms_speech_tpu_torch.training import datasets
 from acousticswarms_speech_tpu_torch.utils.audio import read_wav
@@ -66,12 +69,22 @@ def test_missing_file_raises(tmp_path):
         native.load_wavs([_paths("00000")[0], str(tmp_path / "nope.wav")], 10)
 
 
-@pytest.mark.parametrize("cxx", ["false", "no-such-compiler-xyz"])
-def test_failed_build_raises(monkeypatch, cxx):
-    """A compiler that fails, or none at all: build raises (the library's
-    directory is keyed by the compiler, so the build is attempted)."""
-    monkeypatch.setenv("CXX", cxx)
-    assert not os.path.exists(native.library_path())
+@pytest.mark.parametrize("cxx", ["false", "no-such-compiler-xyz", None],
+                         ids=["false", "no-such-compiler-xyz", "cu-no-nvcc"])
+def test_failed_build_raises(monkeypatch, tmp_path, cxx):
+    """A compiler that fails, or none at all: the WAV loader's build, or
+    (cxx None) a CUDA kernel's with no nvcc on PATH or under CUDA_HOME,
+    raises and leaves no library."""
+    monkeypatch.setattr(libbuild, "BUILD_ROOT", str(tmp_path / "kernel_build"))
+    if cxx is None:
+        monkeypatch.setenv("PATH", str(tmp_path))
+        monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+        path = libbuild.library_path("roll.cu")
+        build = functools.partial(libbuild.build, "roll.cu")
+    else:
+        monkeypatch.setenv("CXX", cxx)
+        path, build = native.library_path(), native.build
+    assert not os.path.exists(path)
     with pytest.raises(RuntimeError):
-        native.build()
-    assert not os.path.exists(native.library_path())
+        build()
+    assert not os.path.exists(path)

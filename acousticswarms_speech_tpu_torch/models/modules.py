@@ -12,7 +12,20 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.block_epilogue import (
+    block_epilogue_cuda,
+    block_epilogue_plain,
+    glu,
+    group_norm,
+)
 from ..ops.residual_epilogue import channel_layer_norm, residual_epilogue_cuda
+
+
+def _on_kernel(x: torch.Tensor) -> bool:
+    """Whether a block's epilogue runs its hand-written kernel: a float32
+    input on a card with gradients off (the kernels have no backward)."""
+    return (x.is_cuda and x.dtype == torch.float32
+            and not torch.is_grad_enabled())
 
 
 class ChannelLayerNorm(nn.Module):
@@ -26,11 +39,6 @@ class ChannelLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return channel_layer_norm(x, self.weight, self.bias, self.eps)
-
-
-def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-    a, b = x.chunk(2, dim=dim)
-    return a * torch.sigmoid(b)
 
 
 class Linear(nn.Linear):
@@ -59,8 +67,8 @@ class GroupNorm(nn.GroupNorm):
     result cast back to the input's dtype, as the JAX package computes it."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+        return group_norm(x, self.num_groups, self.weight, self.bias,
+                          self.eps)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -229,8 +237,7 @@ class DilatedResidualLayer(nn.Module):
         self.norm = ChannelLayerNorm(nchannels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if (x.is_cuda and x.dtype == torch.float32
-                and not torch.is_grad_enabled()):
+        if _on_kernel(x):
             conv = self.conv
             z = F.conv1d(x, conv.weight, None, conv.stride, conv.padding,
                          conv.dilation)
@@ -256,7 +263,11 @@ class DilatedResidualSequence(nn.Module):
 
 class EncoderBlock(nn.Module):
     """Residual stack -> (optional window-embedding gate) -> strided conv ->
-    GroupNorm -> GLU."""
+    GroupNorm -> GLU.
+
+    A float32 CUDA input with gradients off runs the strided convolution
+    without its bias and the rest, bias add included, in the fused kernel K6
+    (ops/block_epilogue.py); every other call runs the composition."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int, residual_layers: int,
@@ -276,12 +287,23 @@ class EncoderBlock(nn.Module):
         x = self.res(x)
         if self.embed1 is not None:
             x = self.embed1(window_embedding[:, :, None]) * x
-        return glu(self.norm1(self.conv1(x)), dim=1)
+        conv, norm = self.conv1, self.norm1
+        if not _on_kernel(x):
+            return block_epilogue_plain(conv(x), norm.weight, norm.bias,
+                                        norm.eps)
+        z = F.conv1d(x, conv.weight, None, conv.stride, conv.padding)
+        epilogue = (block_epilogue_cuda if z.shape[-1] > 1
+                    else block_epilogue_plain)
+        return epilogue(z, norm.weight, norm.bias, norm.eps, bias=conv.bias)
 
 
 class DecoderBlock(nn.Module):
     """skip-add -> ConvTranspose upsample -> (optional gate) -> GroupNorm ->
-    GLU -> residual stack."""
+    GLU -> residual stack.
+
+    The gate, GroupNorm and GLU run in the fused kernel K6
+    (ops/block_epilogue.py) on a float32 CUDA input with gradients off, and
+    as the composition on every other."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int,
                  kernel_size: int, residual_layers: int,
@@ -300,9 +322,13 @@ class DecoderBlock(nn.Module):
     def forward(self, x: torch.Tensor, skip: torch.Tensor,
                 window_embedding=None) -> torch.Tensor:
         x = self.upsample_conv(x + skip)
-        if self.embed1 is not None:
-            x = self.embed1(window_embedding[:, :, None]) * x
-        return self.res(glu(self.norm1(x), dim=1))
+        gate = (None if self.embed1 is None
+                else self.embed1(window_embedding[:, :, None])[:, :, 0])
+        epilogue = (block_epilogue_cuda if _on_kernel(x) and x.shape[-1] > 1
+                    else block_epilogue_plain)
+        norm = self.norm1
+        return self.res(epilogue(x, norm.weight, norm.bias, norm.eps,
+                                 gate=gate))
 
 
 def encoder_channel_plan(in_channels: int, channels: int, growth: float,

@@ -5,9 +5,10 @@
 
 Phases, each printed with the seconds since start:
   device       the card's name, count and power limit;
-  build        nvcc builds the roll kernel (csrc/roll.cu) and the residual
-               epilogue K5 (csrc/residual_epilogue.cu), their register
-               and spill report is printed, and g++ builds the WAV loader
+  build        nvcc builds the roll kernel (csrc/roll.cu), the residual
+               epilogue K5 (csrc/residual_epilogue.cu) and the block
+               epilogue K6 (csrc/block_epilogue.cu), their register and
+               spill report is printed, and g++ builds the WAV loader
                (csrc/wavloader.cpp), all started together;
   kernel check the roll kernel against its plain PyTorch version (exact
                equality: it is a copy) at M = 7, T in {72000, 144000},
@@ -20,6 +21,13 @@ Phases, each printed with the seconds since start:
                five levels at a sweep chunk of 64 candidates, SepNet's four
                at 3 and 5 talkers, timed with CUDA events beside the plain
                version and the bytes bound (12 bytes an element);
+  K6 check     K6 against its plain version (exact equality: GroupNorm's
+               statistics in RowwiseMomentsCUDAKernel's order) at the
+               largest main-path shapes: SpotNet's first and last encoder
+               and last decoder at a chunk of 64 candidates, SepNet's first
+               encoder and last decoder at 5 talkers, timed beside the
+               plain version and the bytes bound (10 bytes an element of
+               its input);
   main path    JointPipeline.forward of the port on the 3 s, 7-mic bench
                scene (.bench_fixture_v2.npz) with both release networks at
                full width in float32: a warm-up forward, then a timed one
@@ -144,15 +152,17 @@ probe and the training, tools, generation, mining and baselines phases and
 read after each; the run fails unless each is 0.  The mesh phase's ranks count theirs (mesh_rank0,
 mesh_rank1); the run fails unless each is above 0.
 
-K5's launch count (residual_epilogue_cuda.launches) is set to 0 and read
-on the paths that read the roll kernel's, in this process and in the
-mesh's ranks.  The run fails where a float32 forward on the card (the
-timed and profiled forwards, each evaluation pass, the 10-mic steps but
-the bfloat16 forward, each mesh rank) launches none, where a bfloat16
-forward launches any, or where the lanes launch another number than the
-serial pass over the same scenes.  The profiled forward's trace must hold
-as many K5 kernels as the counter.  How many launches a network's forward
-makes is pinned by the `gpu` tests (tests/test_torch_kernels_gpu.py).
+K5's and K6's launch counts (residual_epilogue_cuda.launches,
+block_epilogue_cuda.launches) are set to 0 and read on the paths that read
+the roll kernel's, in this process (K5's in the mesh's ranks too).  The run
+fails where a float32 forward on the card (the timed and profiled
+forwards, each evaluation pass, the 10-mic steps but the bfloat16 forward,
+each mesh rank) launches none of either, where a bfloat16 forward launches
+any, or where the lanes launch another number than the serial pass over
+the same scenes.  The profiled forward's trace must hold as many K5
+kernels, and as many K6 apply kernels, as the counters.  How many launches
+a network's forward makes is pinned by the `gpu` tests
+(tests/test_torch_kernels_gpu.py).
 
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernel table as JSON, a row for each kernel.  Any fault prints a traceback and exits 1 without
@@ -214,6 +224,14 @@ EPILOGUE_SHAPES = ([(64, C, T) for C, T in ((64, 72192), (64, 36096),
                       for C, T in ((64, 72000), (64, 36000), (128, 18000),
                                    (256, 4500))])
 EPILOGUE_KERNEL = "residual_epilogue_kernel"  # K5's kernel, in the trace
+# (kind, B, 2C, T) of K6's input at its largest launches on the main path:
+# SpotNet's enc0 and enc4 (conv1 bias) and dec4 (gate) at a chunk of 64
+# candidates, SepNet's enc0 (bias) and dec3 (neither) at 5 talkers; the
+# first in the kernel table
+BLOCK_SHAPES = [("gate", 64, 128, 72192), ("bias", 64, 128, 36096),
+                ("bias", 64, 2048, 282), ("bias", 5, 128, 36000),
+                ("plain", 5, 128, 72000)]
+BLOCK_KERNEL = "block_epilogue_apply_kernel"  # K6's second pass, in the trace
 
 _T0 = time.time()
 
@@ -308,8 +326,9 @@ def device_phase() -> dict:
 
 
 def build_phase() -> dict:
-    """nvcc builds the roll kernel and the residual epilogue and g++ the
-    WAV loader, all started together; returns each build's seconds."""
+    """nvcc builds the roll kernel and the residual and block epilogues and
+    g++ the WAV loader, all started together; returns each build's
+    seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
     from acousticswarms_speech_tpu_torch.runtime import build
@@ -320,14 +339,16 @@ def build_phase() -> dict:
 
     builds = {"roll.cu (nvcc)": "roll.cu",
               "residual_epilogue.cu (nvcc)": "residual_epilogue.cu",
+              "block_epilogue.cu (nvcc)": "block_epilogue.cu",
               "wavloader.cpp (g++)": "wavloader.cpp"}
     with ThreadPoolExecutor(len(builds)) as pool:
         futures = {k: pool.submit(timed, name) for k, name in builds.items()}
         done = {k: f.result() for k, f in futures.items()}
     for name, (path, sec) in done.items():
         log(f"build {name}: {os.path.relpath(path, REPO)} in {sec:.2f}s")
-    for line in (build.build_log("roll.cu")
-                 + build.build_log("residual_epilogue.cu")).splitlines():
+    for line in "".join(build.build_log(name) for name in (
+            "roll.cu", "residual_epilogue.cu",
+            "block_epilogue.cu")).splitlines():
         if "ptxas" in line or "registers" in line or "spill" in line:
             print(f"  {line.strip()}", flush=True)
     return {name: sec for name, (_, sec) in done.items()}
@@ -454,11 +475,95 @@ def epilogue_check_phase() -> dict:
     }
 
 
-def check_k5(label: str, launches: int, float32: bool = True) -> int:
-    """K5's launches on a path: above 0 where it runs float32 forwards on
-    the card, 0 where it runs them in bfloat16 (float32 False)."""
-    if launches <= 0 if float32 else launches != 0:
-        raise AssertionError(f"{label}: {launches} K5 launches")
+def check_block_epilogue(kind: str, B: int, C2: int, T: int, gen) -> dict:
+    """K6 against its plain version on seeded inputs of one shape (exact
+    equality), timed with CUDA events beside the plain version, with its
+    bytes bound: e read twice, the half-width output written once."""
+    import torch
+
+    from acousticswarms_speech_tpu_torch.ops.block_epilogue import (
+        block_epilogue_cuda,
+        block_epilogue_plain,
+    )
+
+    e = torch.randn(B, C2, T, device=DEVICE, generator=gen)
+    w, b = (torch.randn(C2, device=DEVICE, generator=gen) * 0.3 + k
+            for k in (1.0, 0.0))
+    extra = {}
+    if kind == "bias":
+        extra["bias"] = torch.randn(C2, device=DEVICE, generator=gen) * 0.3
+    elif kind == "gate":
+        extra["gate"] = torch.randn(B, C2, device=DEVICE, generator=gen)
+    args = (e, w, b, 1e-5)
+    got = block_epilogue_cuda(*args, **extra)
+    want = block_epilogue_plain(*args, **extra)
+    sync()
+    if not torch.equal(got, want):
+        bad = (got != want).sum().item()
+        raise AssertionError(f"K6 != plain at {kind} B={B} 2C={C2} T={T}: "
+                             f"{bad} elements differ")
+    del got, want
+    return {"kind": kind, "B": B, "C2": C2, "T": T, "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: block_epilogue_cuda(*args, **extra)),
+            "plain_ms": cuda_ms(lambda: block_epilogue_plain(*args, **extra)),
+            "bound_ms": 10 * B * C2 * T / HBM_BYTES_PER_S * 1e3}
+
+
+def block_epilogue_check_phase() -> dict:
+    """K6 at every shape of BLOCK_SHAPES; returns its kernel row, at the
+    first shape, with the others' times beside it."""
+    import torch
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    rows = []
+    for shape in BLOCK_SHAPES:
+        r = check_block_epilogue(*shape, gen)
+        rows.append(r)
+        log(f"K6 check {r['kind']} B={r['B']} 2C={r['C2']} T={r['T']}: equal; "
+            f"kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} "
+            f"({100 * r['bound_ms'] / r['ms']:.1f}% of the bound)")
+        torch.cuda.empty_cache()
+    first = rows[0]
+    return {
+        "name": "block_epilogue", "route": "cuda",
+        "source": "acousticswarms_speech_tpu_torch/csrc/block_epilogue.cu",
+        "replaces": None, "launches": None, "max_abs_err": 0.0,
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "shape": [first["B"], first["C2"], first["T"]],
+        "others": rows[1:], "shapes_checked": len(rows),
+    }
+
+
+def epilogue_wrappers() -> dict:
+    """K5's and K6's wrappers, whose `launches` count their launches."""
+    from acousticswarms_speech_tpu_torch.ops.block_epilogue import \
+        block_epilogue_cuda
+    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
+        residual_epilogue_cuda
+
+    return {"k5": residual_epilogue_cuda, "k6": block_epilogue_cuda}
+
+
+def reset_epilogues() -> None:
+    for wrapper in epilogue_wrappers().values():
+        wrapper.launches = 0
+
+
+def epilogue_launches() -> dict:
+    """{"k5": K5's launches, "k6": K6's} since the last reset."""
+    return {k: w.launches for k, w in epilogue_wrappers().items()}
+
+
+def check_epilogues(label: str, launches: dict, float32: bool = True) -> dict:
+    """K5's and K6's launches on a path: each above 0 where it runs float32
+    forwards on the card, 0 where it runs them in bfloat16 (float32
+    False)."""
+    for k, n in launches.items():
+        if n <= 0 if float32 else n != 0:
+            raise AssertionError(f"{label}: {n} {k.upper()} launches")
     return launches
 
 
@@ -467,8 +572,6 @@ def main_path_phase():
     import torch
 
     from acousticswarms_speech_tpu_torch.models import load_release
-    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
-        residual_epilogue_cuda
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
@@ -517,7 +620,8 @@ def main_path_phase():
     try:
         # the roll inputs of the timed forward, recorded
         with recording_rolls() as shapes:
-            roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
+            roll_channels_batch_cuda.launches = 0
+            reset_epilogues()
             sync()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
@@ -525,11 +629,11 @@ def main_path_phase():
             sync()
             wall = time.time() - t0
             launches = roll_channels_batch_cuda.launches
-            k5_launches = residual_epilogue_cuda.launches
+            epilogues = epilogue_launches()
     finally:
         del proc.subdivide_patch, proc.spotform_big_patch
-    check_k5("joint_forward", k5_launches)
-    log(f"K5 launches in the timed forward: {k5_launches}")
+    check_epilogues("joint_forward", epilogues)
+    log(f"K5 and K6 launches in the timed forward: {epilogues}")
 
     metrics = pipe.stage_metrics()
     log(f"timed forward {wall:.3f}s; stage_metrics "
@@ -578,7 +682,7 @@ def main_path_phase():
         "coarse_candidates": overlap["candidates"],
         "subdivisions": overlap["subdivided"],
         "subdivide_s": overlap["subdivide_s"],
-        "fine_sweep_alone_s": sweep_s, "k5_launches": k5_launches,
+        "fine_sweep_alone_s": sweep_s, "epilogue_launches": epilogues,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
@@ -750,8 +854,6 @@ def eval_phase() -> dict:
     and quality numbers."""
     import torch
 
-    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
-        residual_epilogue_cuda
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline import throughput
@@ -784,7 +886,7 @@ def eval_phase() -> dict:
     # The roll launches of each forward of the serial passes, in scene
     # order: what the lanes pass over its subset of scenes must launch.
     forward_launches = []
-    k5 = {}  # K5's launches in each pass
+    epi = {}  # K5's and K6's launches in each pass
 
     def counting_forward(self, *args, **kwargs):
         before = roll_channels_batch_cuda.launches
@@ -804,16 +906,17 @@ def eval_phase() -> dict:
 
     def timed_eval(folder, label, **kwargs):
         """(counts, seconds, roll launches, setup and forward seconds); K5's
-        launches recorded under `label` and held above 0."""
+        and K6's launches recorded under `label` and held above 0."""
         clock.seconds.clear()
-        roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
+        roll_channels_batch_cuda.launches = 0
+        reset_epilogues()
         sync()
         t0 = time.time()
         counts = evaluate_dataset(pipe, DEV_SET, results_folder=folder,
                                   **kwargs)
         sync()
         sec = time.time() - t0
-        k5[label] = check_k5(label, residual_epilogue_cuda.launches)
+        epi[label] = check_epilogues(label, epilogue_launches())
         return (counts, sec, roll_channels_batch_cuda.launches,
                 dict(clock.seconds))
 
@@ -869,9 +972,10 @@ def eval_phase() -> dict:
         got.pop("stage_times")
         want.pop("stage_times")
         diffs += [f"{name} {d}" for d in _json_diff(want, got)]
-    if k5["evaluate_lanes"] != k5["evaluate_serial_deterministic"]:
-        raise AssertionError(f"K5 launches: lanes {k5['evaluate_lanes']}, "
-                             f"serial {k5['evaluate_serial_deterministic']}")
+    if epi["evaluate_lanes"] != epi["evaluate_serial_deterministic"]:
+        raise AssertionError(f"K5 and K6 launches: lanes "
+                             f"{epi['evaluate_lanes']}, serial "
+                             f"{epi['evaluate_serial_deterministic']}")
     if diffs:
         for d in diffs[:40]:
             log(f"eval: lanes differ from serial: {d}")
@@ -921,7 +1025,7 @@ def eval_phase() -> dict:
         "lane_utilization": stats["lane_utilization"],
         "roll_launches_serial": default_launches,
         "roll_launches_serial_deterministic": serial_launches,
-        "roll_launches_lanes": lanes_launches, "k5_launches": k5,
+        "roll_launches_lanes": lanes_launches, "epilogue_launches": epi,
         "peak_memory_gb": peak_gb,
     }
     oracle = _oracle_sisdri(pipe, scenes)
@@ -954,9 +1058,9 @@ def eval_phase() -> dict:
         f"{json.dumps(oracle['per_scene'])}")
     log(f"eval: roll kernel launches {default_launches} serial (default), "
         f"{serial_launches} serial (deterministic), {lanes_launches} lanes; "
-        f"K5 launches {k5['evaluate_serial']}, "
-        f"{k5['evaluate_serial_deterministic']} and "
-        f"{k5['evaluate_lanes']}; peak device memory {peak_gb:.2f} GB")
+        f"K5 and K6 launches {epi['evaluate_serial']}, "
+        f"{epi['evaluate_serial_deterministic']} and "
+        f"{epi['evaluate_lanes']}; peak device memory {peak_gb:.2f} GB")
 
     from acousticswarms_speech_tpu_torch.ops.shift import \
         roll_channels_batch_plain
@@ -1030,23 +1134,22 @@ def profile_phase(pipe, mix) -> dict:
     over the forward's window (the first stage span's start to the last
     one's end, widened to the first and last kernel), the top device ops,
     each stage span's time; the trace's roll kernels must number the
-    kernel counter's launches."""
-    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
-        residual_epilogue_cuda
+    kernel counter's launches, and K5's and K6's kernels their counters'."""
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline.joint import STAGES
 
     shutil.rmtree(PROFILE_DIR, ignore_errors=True)
     with recording_rolls() as rolls:
-        roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
+        roll_channels_batch_cuda.launches = 0
+        reset_epilogues()
         sync()
         t0 = time.time()
         patches, *_ = pipe.forward(mix, profile_dir=PROFILE_DIR)
         sync()
         wall = time.time() - t0
         launches = roll_channels_batch_cuda.launches
-        k5_launches = residual_epilogue_cuda.launches
+        epilogues = epilogue_launches()
     traces = glob.glob(os.path.join(PROFILE_DIR, "*.pt.trace.json"))
     if len(traces) != 1 or not patches:
         raise AssertionError(f"profiled forward: traces {traces}, "
@@ -1064,11 +1167,12 @@ def profile_phase(pipe, mix) -> dict:
         raise AssertionError(f"trace holds {trace_rolls} roll kernels, the "
                              f"counter {launches}")
     hold_rolls(rolls, "profiled forward")
-    check_k5("joint_forward_profiled", k5_launches)
-    trace_k5 = sum(EPILOGUE_KERNEL in e["name"] for e in kernels)
-    if trace_k5 != k5_launches:
-        raise AssertionError(f"trace holds {trace_k5} K5 kernels, the "
-                             f"counter {k5_launches}")
+    check_epilogues("joint_forward_profiled", epilogues)
+    traced = {k: sum(name in e["name"] for e in kernels)
+              for k, name in (("k5", EPILOGUE_KERNEL), ("k6", BLOCK_KERNEL))}
+    if traced != epilogues:
+        raise AssertionError(f"trace holds {traced} K5 and K6 kernels, the "
+                             f"counters {epilogues}")
     starts = [e["ts"] for e in kernels] + [e["ts"] for e in spans.values()]
     ends = ([e["ts"] + e["dur"] for e in kernels]
             + [e["ts"] + e["dur"] for e in spans.values()])
@@ -1083,8 +1187,8 @@ def profile_phase(pipe, mix) -> dict:
         "window_s": window_s, "device_busy_s": busy_s,
         "idle_share": 1.0 - busy_s / window_s, "kernels": len(kernels),
         "kernel_names": len(by_name), "roll_launches": launches,
-        "trace_roll_kernels": trace_rolls, "k5_launches": k5_launches,
-        "trace_k5_kernels": trace_k5,
+        "trace_roll_kernels": trace_rolls, "epilogue_launches": epilogues,
+        "trace_epilogue_kernels": traced,
         "stage_spans_s": {k: spans[k]["dur"] / 1e6 for k in STAGES},
         "top_device_ops": [{"name": name[:120], "count": len(d),
                             "total_s": sum(d) / 1e6} for name, d in top],
@@ -1094,8 +1198,8 @@ def profile_phase(pipe, mix) -> dict:
         f"forward spans {window_s:.3f}s, device busy {busy_s:.3f}s "
         f"(union of {len(kernels)} kernels of {len(by_name)} names), idle "
         f"share {out['idle_share']:.3f}; roll kernels {trace_rolls} in the "
-        f"trace, {launches} by the counter; equal to plain; K5 kernels "
-        f"{trace_k5} in the trace, {k5_launches} by the counter")
+        f"trace, {launches} by the counter; equal to plain; K5 and K6 "
+        f"kernels {traced} in the trace, {epilogues} by the counters")
     log(f"profile: stage spans (s) "
         f"{json.dumps({k: round(v, 4) for k, v in out['stage_spans_s'].items()})}")
     for r in out["top_device_ops"]:
@@ -1184,8 +1288,6 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
     float32 forward's heads and audio."""
     import numpy as np
 
-    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
-        residual_epilogue_cuda
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
@@ -1202,7 +1304,8 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
     sync()
     warm = time.time() - t0
     with recording_rolls() as rolls:
-        roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
+        roll_channels_batch_cuda.launches = 0
+        reset_epilogues()
         pipe16.spot_model.calls = 0
         sync()
         t0 = time.time()
@@ -1210,14 +1313,14 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
         sync()
         wall = time.time() - t0
         launches = roll_channels_batch_cuda.launches
-        k5_launches = residual_epilogue_cuda.launches
+        epilogues = epilogue_launches()
     audio = np.asarray(audio)
     if not patches or audio.shape != (len(patches), mix.shape[1]) or not \
             np.isfinite(audio).all() or launches <= 0:
         raise AssertionError(f"bf16 forward: {len(patches)} heads, audio "
                              f"{audio.shape}, {launches} roll launches")
     hold_rolls(rolls, "bf16 forward")
-    check_k5("joint_forward_bf16", k5_launches, float32=False)
+    check_epilogues("joint_forward_bf16", epilogues, float32=False)
     pos32 = np.array([p[0].center_pos()[:2] for p in heads32])
     matched = []
     for k, p in enumerate(patches):
@@ -1227,12 +1330,12 @@ def bf16_phase(pipe, mix, fine_mix, fine_shifts, f32_out) -> dict:
                         "audio_sisdr_db": float(si_sdr(audio[k],
                                                        audio32[j]))})
     out.update({"warmup_s": warm, "wall_s": wall, "roll_launches": launches,
-                "k5_launches": k5_launches,
+                "epilogue_launches": epilogues,
                 "heads": len(patches), "f32_heads": len(heads32),
                 "matched": matched, **pipe16.stage_metrics()})
     log(f"bf16 forward: warm-up {warm:.2f}s, timed {wall:.3f}s; stage_metrics "
         f"{json.dumps(pipe16.stage_metrics())}; roll kernel launches "
-        f"{launches}, equal to plain; K5 launches 0")
+        f"{launches}, equal to plain; K5 and K6 launches 0")
     log(f"bf16 forward: {len(patches)} heads beside {len(heads32)} in "
         f"float32; matched (bf16 head, f32 head, distance m, SI-SDR of bf16 "
         f"audio against f32 dB): "
@@ -1664,7 +1767,7 @@ def retune_phase(evaluation: dict) -> dict:
         f"{suite_s:.2f}s (started with (b))")
 
     t0 = time.time()
-    rows, probe_launches, probe_k5 = counted(
+    rows, probe_launches, probe_epilogues = counted(
         "probe_sep_batch", probe_sep_batch.probe, [1, 2, 4], SEP_DIR, DEVICE)
     probe_s = time.time() - t0
     for r in rows:
@@ -1679,7 +1782,7 @@ def retune_phase(evaluation: dict) -> dict:
     return {"traced": traced, "loop_s": loop_s, "suite_s": suite_s,
             "probe": rows, "probe_s": probe_s,
             "probe_roll_launches": probe_launches,
-            "probe_k5_launches": probe_k5}
+            "probe_epilogue_launches": probe_epilogues}
 
 
 def tools_phase() -> dict:
@@ -2390,8 +2493,6 @@ def many_mics_phase() -> dict:
     import torch
 
     from acousticswarms_speech_tpu_torch.data import voicegen
-    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
-        residual_epilogue_cuda
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
     from acousticswarms_speech_tpu_torch.pipeline.joint import JointPipeline
@@ -2400,14 +2501,16 @@ def many_mics_phase() -> dict:
     shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    out = {"launches": {}, "k5_launches": {}, "seconds": {}}
+    out = {"launches": {}, "epilogue_launches": {}, "seconds": {}}
     rolls = []
 
     def drive(name, fn, float32=True):
         """fn() with the launch counts set to 0 just before and read just
-        after (K5's held by check_k5); returns (result, seconds)."""
+        after (K5's and K6's held by check_epilogues); returns (result,
+        seconds)."""
         with recording_rolls() as got:
-            roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
+            roll_channels_batch_cuda.launches = 0
+            reset_epilogues()
             sync()
             t0 = time.time()
             result = fn()
@@ -2417,8 +2520,8 @@ def many_mics_phase() -> dict:
         if n != len(got):
             raise AssertionError(f"many_mics {name}: {n} launches for "
                                  f"{len(got)} rolls")
-        out["k5_launches"][name] = check_k5(
-            f"many_mics.{name}", residual_epilogue_cuda.launches, float32)
+        out["epilogue_launches"][name] = check_epilogues(
+            f"many_mics.{name}", epilogue_launches(), float32)
         out["launches"][name] = n
         out["seconds"][name] = sec
         rolls.extend(got)
@@ -2493,7 +2596,8 @@ def many_mics_phase() -> dict:
                                                  "plain_ms", "library_ms",
                                                  "bound_ms")}
     out["roll_launches"] = total
-    log(f"many_mics: K5 launches {json.dumps(out['k5_launches'])}")
+    log(f"many_mics: K5 and K6 launches "
+        f"{json.dumps(out['epilogue_launches'])}")
     log(f"many_mics: roll kernel launches {json.dumps(out['launches'])} "
         f"({total} in all), each equal to plain; largest launch "
         f"B={big['B']} M={big['M']} T={big['T']}: kernel_ms={big['ms']:.4f} "
@@ -2722,7 +2826,8 @@ def mesh_phase(fine_mix, fine_shifts, mix) -> dict:
             if r["launches"] <= 0:
                 raise AssertionError(f"mesh {label} rank {r['rank']}: no roll "
                                      f"kernel launch")
-            check_k5(f"mesh {label} rank {r['rank']}", r["k5_launches"])
+            check_epilogues(f"mesh {label} rank {r['rank']}",
+                            {"k5": r["k5_launches"]})
             log(f"mesh {label} rank {r['rank']} ({r['backend']}, "
                 f"{r['device']}): sharded sweep {r['sharded_sweep_s']:.3f}s, "
                 f"of which all-gathers {r['gather_s']:.4f}s "
@@ -2792,26 +2897,26 @@ def mesh_phase(fine_mix, fine_shifts, mix) -> dict:
 
 
 def counted(name: str, phase, *args):
-    """Run a phase with the roll kernel's and K5's launch counts set to 0
-    just before and read just after; these paths never roll, so the roll
-    kernel's must stay 0.  Returns (result, roll launches, K5 launches)."""
-    from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
-        residual_epilogue_cuda
+    """Run a phase with the roll kernel's, K5's and K6's launch counts set
+    to 0 just before and read just after; these paths never roll, so the
+    roll kernel's must stay 0.  Returns (result, roll launches, K5's and
+    K6's launches)."""
     from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
         roll_channels_batch_cuda
 
     t0 = time.time()
-    roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
+    roll_channels_batch_cuda.launches = 0
+    reset_epilogues()
     result = phase(*args)
     sync()
     launches = roll_channels_batch_cuda.launches
-    k5_launches = residual_epilogue_cuda.launches
+    epilogues = epilogue_launches()
     log(f"{name} phase {time.time() - t0:.2f}s; roll kernel launches "
-        f"{launches}; K5 launches {k5_launches}")
+        f"{launches}; K5 and K6 launches {epilogues}")
     if launches != 0:
         raise AssertionError(f"{name} launched the roll kernel {launches} "
                              f"times")
-    return result, launches, k5_launches
+    return result, launches, epilogues
 
 
 def _flatten_tree(tree, prefix=""):
@@ -2835,15 +2940,14 @@ def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     sys.path.insert(0, REPO)
     try:
-        from acousticswarms_speech_tpu_torch.ops.residual_epilogue import \
-            residual_epilogue_cuda  # (fails early outside the repo)
         from acousticswarms_speech_tpu_torch.ops.roll_kernel import \
-            roll_channels_batch_cuda
+            roll_channels_batch_cuda  # (fails early outside the repo)
 
         device = device_phase()
         build_s = build_phase()
         kernel_check_phase()
         k5_row = epilogue_check_phase()
+        k6_row = block_epilogue_check_phase()
         pipe, mix, shapes, launches, f32_out, summary = main_path_phase()
         kernel_row = reference_phase(pipe, mix, shapes, launches)
         log(f"main path summary {json.dumps(summary)}")
@@ -2875,22 +2979,26 @@ def main() -> int:
         retune = retune_phase(evaluation)
         log(f"retune phase {time.time() - t0:.2f}s: {json.dumps(retune)}")
         t0 = time.time()
-        roll_channels_batch_cuda.launches = residual_epilogue_cuda.launches = 0
+        roll_channels_batch_cuda.launches = 0
+        reset_epilogues()
         training = train_phase()
         train_launches = roll_channels_batch_cuda.launches
         # the update steps run with gradients on, so only the validation
-        # passes (float32, no gradients) launch K5
-        train_k5 = residual_epilogue_cuda.launches
+        # passes (float32, no gradients) launch K5 and K6
+        train_epilogues = epilogue_launches()
         log(f"training phase {time.time() - t0:.2f}s: {json.dumps(training)}; "
-            f"roll kernel launches {train_launches}; K5 launches {train_k5}")
+            f"roll kernel launches {train_launches}; K5 and K6 launches "
+            f"{train_epilogues}")
         # The datasets shift on the host and the kernel has no VJP.
         if train_launches != 0:
             raise AssertionError(f"training launched the roll kernel "
                                  f"{train_launches} times")
-        tools, tools_launches, tools_k5 = counted("tools", tools_phase)
-        generation, gen_launches, gen_k5 = counted("generation", generation_phase)
-        mining, mine_launches, mine_k5 = counted("mining", mining_phase)
-        baselines, base_launches, base_k5 = counted("baselines", baselines_phase)
+        tools, tools_launches, tools_epi = counted("tools", tools_phase)
+        generation, gen_launches, gen_epi = counted("generation",
+                                                    generation_phase)
+        mining, mine_launches, mine_epi = counted("mining", mining_phase)
+        baselines, base_launches, base_epi = counted("baselines",
+                                                     baselines_phase)
         loader = loader_phase(build_s)
         new_paths = {"generation": generation, "mining": mining,
                      "baselines": baselines, "loader": loader, "tools": tools}
@@ -2922,23 +3030,28 @@ def main() -> int:
                                         mesh["kernel_max_abs_err"])
         kernel_row["eval_largest_launch"] = evaluation["largest_launch"]
         kernel_row["many_mics_largest_launch"] = many_mics["largest_launch"]
-        k5_row["launches"] = summary["k5_launches"]
-        k5_row["launches_by_path"] = {
-            "joint_forward": summary["k5_launches"],
-            "joint_forward_profiled": profile["k5_launches"],
-            "joint_forward_bf16": bf16["k5_launches"],
-            **{f"many_mics.{k}": n for k, n in many_mics["k5_launches"].items()},
-            **evaluation["k5_launches"],
-            "probe_sep_batch": retune["probe_k5_launches"], "train": train_k5,
-            "tools": tools_k5, "generation": gen_k5, "mining": mine_k5,
-            "baselines": base_k5, **mesh["k5_launches"]}
+        epilogues_by_path = {
+            "joint_forward": summary["epilogue_launches"],
+            "joint_forward_profiled": profile["epilogue_launches"],
+            "joint_forward_bf16": bf16["epilogue_launches"],
+            **{f"many_mics.{k}": n
+               for k, n in many_mics["epilogue_launches"].items()},
+            **evaluation["epilogue_launches"],
+            "probe_sep_batch": retune["probe_epilogue_launches"],
+            "train": train_epilogues, "tools": tools_epi,
+            "generation": gen_epi, "mining": mine_epi, "baselines": base_epi}
+        for key, row in (("k5", k5_row), ("k6", k6_row)):
+            row["launches"] = summary["epilogue_launches"][key]
+            row["launches_by_path"] = {path: n[key] for path, n
+                                       in epilogues_by_path.items()}
+        k5_row["launches_by_path"].update(mesh["k5_launches"])
     except BaseException:
         traceback.print_exc()
         sys.stderr.flush()
         return 1
     finally:
         faulthandler.cancel_dump_traceback_later()
-    print(json.dumps({"kernels": [kernel_row, k5_row]}), flush=True)
+    print(json.dumps({"kernels": [kernel_row, k5_row, k6_row]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

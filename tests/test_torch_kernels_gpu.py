@@ -412,3 +412,188 @@ def test_residual_epilogue_runs_in_threads(cuda):
         th.join()
     assert not bad
     assert residual_epilogue_cuda.launches - before == 100
+
+
+# K6, the fused epilogue of a U-Net block (ops/block_epilogue.py,
+# csrc/block_epilogue.cu): (kind, B, 2C, T) of e at every launch on the main
+# path.  SpotNet's five encoders (conv1 bias) and five decoders (gate) at a
+# sweep chunk of 64 candidates and a partial chunk of 17 (72192 samples
+# after its pad), and at the heads' full 3 s (144384) for 5 heads; SepNet's
+# four encoders (bias) and four decoders (neither) at 2 and 5 talkers.
+def _block_shapes(B, T, levels, kinds):
+    enc = [(kinds[0], B, c2, T // s) for c2, s in levels]
+    dec = [(kinds[1], B, c2, T // s) for c2, s in reversed(levels[:-1])]
+    return enc + dec + [(kinds[1], B, levels[0][0], T)]
+
+
+SPOT_BLOCKS = [(128, 2), (256, 4), (512, 16), (1024, 64), (2048, 256)]
+SEP_BLOCKS = [(128, 2), (256, 4), (512, 16), (1024, 64)]
+BLOCK_SHAPES = (
+    _block_shapes(64, 72192, SPOT_BLOCKS, ("bias", "gate"))
+    + _block_shapes(17, 72192, SPOT_BLOCKS, ("bias", "gate"))
+    + _block_shapes(5, 144384, SPOT_BLOCKS, ("bias", "gate"))
+    + [s for n in (2, 5)
+       for s in _block_shapes(n, 72000, SEP_BLOCKS, ("bias", "plain"))]
+    # 32 threads a row (C * T < 512); T not a multiple of 4 (the scalar
+    # path); the shortest T; one item
+    + [("bias", 3, 16, 40), ("gate", 2, 64, 15), ("plain", 4, 1024, 2),
+       ("gate", 1, 256, 999), ("plain", 3, 128, 1001)])
+
+
+def _block_inputs(kind, B, C2, T, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    e = torch.randn(B, C2, T, device=device, generator=gen)
+    w = 1 + torch.randn(C2, device=device, generator=gen) * 0.3
+    b = torch.randn(C2, device=device, generator=gen) * 0.3
+    extra = {}
+    if kind == "bias":
+        extra["bias"] = torch.randn(C2, device=device, generator=gen) * 0.3
+    elif kind == "gate":
+        extra["gate"] = torch.randn(B, C2, device=device, generator=gen)
+    return (e, w, b, 1e-5), extra
+
+
+def _block_float64(e, w, b, eps, bias=None, gate=None):
+    e = e.double()
+    if bias is not None:
+        e = e + bias.double()[:, None]
+    if gate is not None:
+        e = gate.double()[:, :, None] * e
+    y = torch.nn.functional.group_norm(e, 2, w.double(), b.double(), eps)
+    a, g = y.chunk(2, dim=1)
+    return a * torch.sigmoid(g)
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=str)
+def test_block_epilogue_matches_plain_and_float64(cuda, shape):
+    """K6 gives the plain version's bits (GroupNorm's statistics in its
+    order and tree, each later step rounded as its kernel rounds it), so
+    its relative L2 error against float64 is the plain version's."""
+    from acousticswarms_speech_tpu_torch.ops.block_epilogue import (
+        block_epilogue_cuda,
+        block_epilogue_plain,
+    )
+
+    args, extra = _block_inputs(*shape, cuda, sum(shape[1:]))
+    before = block_epilogue_cuda.launches
+    got = block_epilogue_cuda(*args, **extra)
+    torch.cuda.synchronize()
+    assert block_epilogue_cuda.launches == before + 1
+    plain = block_epilogue_plain(*args, **extra)
+    exact = _block_float64(*args, **extra)
+    err, plain_err = _rel(got, exact), _rel(plain, exact)
+    assert torch.isfinite(got).all()
+    assert err <= 1.5 * plain_err, (err, plain_err)
+    assert torch.equal(got, plain), _rel(got, plain)
+
+
+@pytest.mark.parametrize("kind", ["encoder", "decoder"])
+def test_blocks_kernel_is_the_composition(cuda, kind):
+    """An EncoderBlock or a gated DecoderBlock on the card (float32,
+    gradients off) launches K6 once and gives to the bit what its old
+    composition gives (the encoder's conv1 with its bias, the gate as a
+    product, GroupNorm, GLU)."""
+    from acousticswarms_speech_tpu_torch.models.modules import (
+        DecoderBlock,
+        EncoderBlock,
+    )
+    from acousticswarms_speech_tpu_torch.ops.block_epilogue import \
+        block_epilogue_cuda
+
+    torch.manual_seed(5)
+    if kind == "encoder":
+        block = EncoderBlock(128, 256, 7, 4, 3, 7,
+                             use_window_embedding=True).to(cuda)
+        args = (torch.randn(17, 128, 18048, device=cuda),)
+    else:
+        block = DecoderBlock(256, 128, 4, 7, 3, 7,
+                             use_window_embedding=True).to(cuda)
+        args = (torch.randn(17, 256, 4512, device=cuda),
+                torch.randn(17, 256, 4512, device=cuda))
+    w = torch.tensor([[0.0, 1.0]], device=cuda).expand(17, 2).contiguous()
+    with torch.no_grad():
+        block.norm1.weight.normal_(1, 0.3)
+        block.norm1.bias.normal_(0, 0.3)
+        before = block_epilogue_cuda.launches
+        got = block(*args, w)
+        assert block_epilogue_cuda.launches == before + 1
+        g = block.embed1(w[:, :, None])
+        if kind == "encoder":
+            y = block.norm1(block.conv1(g * block.res(args[0])))
+            a, b = y.chunk(2, dim=1)
+            want = a * torch.sigmoid(b)
+        else:
+            y = block.norm1(g * block.upsample_conv(args[0] + args[1]))
+            a, b = y.chunk(2, dim=1)
+            want = block.res(a * torch.sigmoid(b))
+        assert torch.equal(got, want), _rel(got, want)
+
+
+def test_block_epilogue_unaligned_input(cuda):
+    """A contiguous view 4 bytes past an allocation's start takes the
+    scalar path and still gives the plain version's bits."""
+    from acousticswarms_speech_tpu_torch.ops.block_epilogue import (
+        block_epilogue_cuda,
+        block_epilogue_plain,
+    )
+
+    (e, w, b, eps), extra = _block_inputs("gate", 3, 256, 4512, cuda, 12)
+    es = torch.empty(e.numel() + 1, device=cuda)[1:].view_as(e).copy_(e)
+    assert es.is_contiguous() and es.data_ptr() % 16 != 0
+    got = block_epilogue_cuda(es, w, b, eps, **extra)
+    assert torch.equal(got, block_epilogue_plain(e, w, b, eps, **extra))
+
+
+def test_block_epilogue_rejects_bad_inputs(cuda):
+    from acousticswarms_speech_tpu_torch.ops.block_epilogue import \
+        block_epilogue_cuda
+
+    (e, w, b, eps), extra = _block_inputs("gate", 2, 64, 256, cuda, 3)
+    before = block_epilogue_cuda.launches
+    with pytest.raises(TypeError):
+        block_epilogue_cuda(e.double(), w, b, eps)
+    with pytest.raises(ValueError):  # devices
+        block_epilogue_cuda(e, w.cpu(), b, eps)
+    with pytest.raises(ValueError):
+        block_epilogue_cuda(e, w, b, eps, gate=extra["gate"].cpu())
+    with pytest.raises(ValueError):  # shapes
+        block_epilogue_cuda(e[:, :63].contiguous(), w, b, eps)
+    with pytest.raises(ValueError):
+        block_epilogue_cuda(e, w, b, eps, gate=extra["gate"][:1].contiguous())
+    with pytest.raises(ValueError):  # strides
+        block_epilogue_cuda(e.transpose(1, 2).contiguous().transpose(1, 2),
+                            w, b, eps)
+    assert block_epilogue_cuda.launches == before
+
+
+def test_block_epilogue_counts_launches_and_dispatch(cuda):
+    """One SpotNet chunk launches K6 once for each of its 10 blocks and one
+    SepNet forward 8 times, each launch counted on the wrapper; with
+    gradients on, or in bfloat16, a block runs the plain composition."""
+    from acousticswarms_speech_tpu_torch.models import SepNet, SpotNet, init_model
+    from acousticswarms_speech_tpu_torch.models.modules import EncoderBlock
+    from acousticswarms_speech_tpu_torch.ops.block_epilogue import \
+        block_epilogue_cuda
+
+    def launches(fn):
+        before = block_epilogue_cuda.launches
+        fn()
+        torch.cuda.synchronize()
+        return block_epilogue_cuda.launches - before
+
+    spot = init_model(SpotNet().eval(), seed=0).to(cuda)
+    x = torch.randn(4, 7, 72000, device=cuda)
+    w = torch.tensor([[0.0, 1.0]], device=cuda).expand(4, 2)
+    with torch.no_grad():
+        assert launches(lambda: spot(x, w)) == 10
+    sep = init_model(SepNet().eval(), seed=0).to(cuda)
+    mix = torch.randn(1, 3 * 7, 72000, device=cuda)
+    with torch.no_grad():
+        assert launches(lambda: sep(mix, torch.tensor([3], device=cuda))) == 8
+
+    block = EncoderBlock(64, 64, 7, 2, 1, 7).to(cuda)
+    h = torch.randn(2, 64, 4096, device=cuda)
+    with torch.enable_grad():
+        assert launches(lambda: block(h).sum().backward()) == 0
+    with torch.no_grad():
+        assert launches(lambda: block.to(torch.bfloat16)(h.bfloat16())) == 0

@@ -17,14 +17,47 @@ its limit in the configuration's file (`limits`):
 - `audio_err`: the largest relative L2 gap of a head's separated audio.
 Where the two sides' shapes differ (maps of another size), a number reads
 NOT_COMPARABLE, far above any limit.
+
+The rule that sets the limits (`limits_from`), from the readings that
+`calibrate.py` takes on the card and `benchmark/calibration/<config>.jsonl`
+keeps: sound runs (the timed path and its sound variants, float32 that
+only sums in other orders) give the lower readings, the controls
+(`CONTROLS`, precisions below the configuration's) the upper ones.
+- An exact number (`EXACT`) has the limit 0.
+- A sound run whose decisions differ from the reference's
+  (`decides_otherwise`: an exact number over 0, or two heads of near-equal
+  power swapped in rank, so that a head is compared with another
+  talker's) reads no precision: it sets no limit, and PERF.md records it.
+- A continuous number's (`CONTINUOUS`) lower reading L is its worst over
+  every other sound run, every variant and seed; its upper reading U the
+  least over the control runs in which it reads SEPARATES times L or more
+  (a control that a number cannot see, such as bfloat16 networks for the
+  float32 SRP map, sets no upper reading).  Its limit is L^(1/3) U^(2/3),
+  rounded to one significant figure: between the two, with two thirds of
+  the room, on a log scale, above the lower reading, as fresh seeds read
+  higher than the calibration's did.
+- The rule holds only if every number has an upper reading and every
+  control run exceeds at least one limit by MARGIN times or more (an
+  exact number that differs exceeds its 0 without end).  Where it does
+  not, the readings cannot set the limits.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 
 NOT_COMPARABLE = 1e9
 NUMBERS = ("srp_map_err", "patches0_diff", "spot_calls_diff", "heads_diff",
            "head_offset_err", "audio_loc_err", "audio_err")
+EXACT = ("patches0_diff", "spot_calls_diff", "heads_diff")
+CONTINUOUS = tuple(k for k in NUMBERS if k not in EXACT)
+CONTROLS = ("tf32", "bf16")
+SEPARATES = 3
+MARGIN = 3
+# Samples: a head compared with another talker's head reads this much or
+# more (talkers lie many samples apart), where rounding reads about 1e-5.
+SWAP = 1.0
 
 
 def heads_of(patches) -> list:
@@ -82,3 +115,37 @@ def worst(readings: list[dict]) -> dict:
 
 def judge(numbers: dict, limits: dict) -> bool:
     return all(numbers[k] <= limits[k] for k in NUMBERS)
+
+
+def round1(x: float) -> float:
+    """x rounded to one significant figure."""
+    return float(f"{x:.0e}")
+
+
+def decides_otherwise(numbers: dict) -> bool:
+    """Whether a run's decisions differ from the reference's."""
+    return (any(numbers[k] > 0 for k in EXACT)
+            or numbers["head_offset_err"] >= SWAP)
+
+
+def limits_from(lines: list[dict]) -> dict:
+    """The limits that the rule sets from calibration lines (each with its
+    `control` and `numbers`)."""
+    sound = [r["numbers"] for r in lines if r["control"] not in CONTROLS
+             and not decides_otherwise(r["numbers"])]
+    controls = [r["numbers"] for r in lines if r["control"] in CONTROLS]
+    out = {k: 0 for k in EXACT}
+    for k in CONTINUOUS:
+        low = max(n[k] for n in sound)
+        seen = [n[k] for n in controls if n[k] >= SEPARATES * low]
+        if not seen:
+            raise ValueError(f"{k}: no control reads {SEPARATES}x its "
+                             f"worst sound reading {low}")
+        out[k] = round1(low ** (1 / 3) * min(seen) ** (2 / 3))
+    return {k: out[k] for k in NUMBERS}
+
+
+def margin(numbers: dict, limits: dict) -> float:
+    """How many times over its limit the number farthest over it reads."""
+    return max(numbers[k] / limits[k] if limits[k]
+               else math.inf if numbers[k] > 0 else 0.0 for k in NUMBERS)

@@ -32,7 +32,7 @@ import traceback
 import numpy as np
 import torch
 
-from . import check, nets, trace
+from . import calibrate, check, nets, trace
 from .reference.pipeline import ReferencePipeline
 from .traffic import generator
 
@@ -246,15 +246,18 @@ def _setup_array(pipe, mics, roi, config, cache: bool) -> float:
 
 
 def run_cell(spec: dict, seed: int, seconds: float, trace_on: bool,
-             device, t_start: float, control: str | None = None) -> dict:
+             device, t_start: float, control: str | None = None,
+             first: int | None = None, least: int = 0) -> dict:
     """One run of the cell `spec` (see `cell_spec`).  Returns the result
-    line's dict with the compared numbers under `check`, last."""
+    line's dict with the compared numbers under `check`, last.  `control`
+    names a sound variant or control of `calibrate.py`, switched on until
+    the window has closed; `first` is the window's first mixture (by
+    default the one after the warm-up's), and the window runs on past
+    `seconds` until `least` mixtures have ended."""
     config, traffic = spec["config"], spec["traffic"]
     device = torch.device(device)
     per_mixture = traffic["layout"] == "per_mixture"
-    if control == "tf32":
-        torch.backends.cuda.matmul.allow_tf32 = True
-        torch.backends.cudnn.allow_tf32 = True
+    undo = calibrate.depart(control)
 
     pipe = build_program(config, device, control)
     log(f"networks ready at {time.perf_counter() - t_start:.2f}s")
@@ -295,11 +298,12 @@ def run_cell(spec: dict, seed: int, seconds: float, trace_on: bool,
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         prof = torch.profiler.profile(activities=activities)
         prof.__enter__()
-    i = pool.warmup
+    i = start = pool.warmup if first is None else first
     with torch.profiler.record_function(trace.WINDOW_SPAN):
         t0 = time.perf_counter()
         t_last = t0
-        while time.perf_counter() - t0 < seconds:
+        while (time.perf_counter() - t0 < seconds
+               or len(mixtures) + failed < least):
             mix, mics, roi = pool.take(i)
             rec = {"index": i, "array_setup_s": None,
                    "started_at": time.perf_counter() - t0}
@@ -326,8 +330,9 @@ def run_cell(spec: dict, seed: int, seconds: float, trace_on: bool,
             mixtures.append(rec)
             i += 1
     window_s = t_last - t0
-    attempted = i - pool.warmup
+    attempted = i - start
     recorder.unwrap()
+    undo()
     if prof is not None:
         prof.__exit__(None, None, None)
     peak = (torch.cuda.max_memory_allocated(device)

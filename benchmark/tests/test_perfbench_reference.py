@@ -2,6 +2,8 @@
 CPU at narrow widths (the harness's look for a card skipped): the port in
 float32 agrees with the plain reference, its bfloat16 path does not, and
 a run whose timed path is broken underneath comes out not correct."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -30,7 +32,11 @@ def test_float32_port_agrees_with_the_reference(sound):
     assert sound["attempted"] == 1 and sound["failed"] == 0
     numbers = {k: v["value"] for k, v in sound["check"].items()}
     assert set(numbers) == set(check.NUMBERS) | {"records_missing"}
-    assert all(v == 0 for v in numbers.values()), numbers
+    assert all(numbers[k] == 0 for k in check.EXACT + ("records_missing",)
+               ), numbers
+    for k in check.CONTINUOUS:
+        assert math.isfinite(numbers[k]), numbers
+        assert numbers[k] <= sound["check"][k]["limit"], numbers
     assert list(sound)[-1] == "check"
 
 
